@@ -1,0 +1,21 @@
+"""repro_torch: the Steiner solver on PyTorch, with hand-written CUDA kernels.
+
+The PyTorch/CUDA counterpart of the JAX package ``repro``; the two packages
+share no code.  This package mirrors its layout and names so that every
+module has an obvious counterpart:
+
+core/      graph containers, Voronoi state, distance graph, MST, tree
+kernels/   the min-plus ELL relaxation: CUDA C++ kernels for Hopper
+           (sm_90a, built with nvcc at first use) beside a plain PyTorch
+           version of each
+solver/    SolverConfig -> SteinerSolver.prepare(graph) -> solve(seeds)
+data/      RMAT graphs and seed selection (numpy-identical to ``repro``)
+convert    numpy arrays of the JAX package -> this package's objects
+
+Entry points run on the GPU unless the caller asks for ``device="cpu"``.
+A CUDA tensor given to a kernel wrapper launches the kernel or raises; a CPU
+tensor takes the plain PyTorch version.  Only ``backend="single"`` with
+``mode="pallas"`` is ported so far (see ROADMAP.md for the rest).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
+
+minplus/  the min-plus ELL relaxation of the Voronoi loop: ``minplus_call``
+          (distances gathered from device memory) and
+          ``minplus_blocked_call`` (distances staged through shared memory
+          in source slices), both in ``minplus/csrc/minplus.cu``.
+
+A wrapper given CUDA tensors launches its kernel or raises; given CPU
+tensors it runs the plain version in ``ref.py``.  Sources are compiled with
+nvcc at first use (:mod:`repro_torch.kernels._build`).
+"""

@@ -1,0 +1,26 @@
+"""Solver API: ``SteinerSolver(cfg, device=...).prepare(graph).solve(seeds)``.
+
+Only ``SolverConfig(backend="single", mode="pallas")`` is ported so far.
+"""
+
+from repro_torch.solver import backends as _backends  # registers "single"
+from repro_torch.solver.api import PreparedGraph, SteinerSolver
+from repro_torch.solver.config import BACKENDS, MODES, SolverConfig
+from repro_torch.solver.registry import (
+    SolveOutput,
+    SolveTelemetry,
+    get_backend,
+    register_backend,
+)
+
+__all__ = [
+    "BACKENDS",
+    "MODES",
+    "PreparedGraph",
+    "SolveOutput",
+    "SolveTelemetry",
+    "SolverConfig",
+    "SteinerSolver",
+    "get_backend",
+    "register_backend",
+]

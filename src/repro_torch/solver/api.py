@@ -1,0 +1,94 @@
+"""The solver facade: one config, one prepare, many solves.
+
+Usage::
+
+    from repro_torch.solver import SolverConfig, SteinerSolver
+
+    solver = SteinerSolver(SolverConfig(backend="single", mode="pallas"))
+    handle = solver.prepare(graph)        # graph to the GPU, ELL view, once
+    out = handle.solve(seeds)             # min-plus kernel rounds + tail
+    out.total_distance                    # D(G_S)
+
+The solver runs on ``device="cuda"`` unless given another device; with no
+CUDA device present the default raises instead of running on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.solver.config import SolverConfig
+from repro_torch.solver.registry import SolveOutput, get_backend
+from repro_torch.solver.backends import NOT_PORTED
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must be present."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the plain "
+            "PyTorch path instead of the kernels"
+        )
+    return device
+
+
+class PreparedGraph:
+    """A graph bound to one backend and device with its preprocessing done.
+
+    Created by :meth:`SteinerSolver.prepare`; do not construct directly.
+    """
+
+    def __init__(self, config: SolverConfig, backend, graph, artifacts, device):
+        self.config = config
+        self.graph = graph
+        self.device = device
+        self._backend = backend
+        self._artifacts = artifacts
+
+    @property
+    def backend(self) -> str:
+        return self._backend.name
+
+    @property
+    def preprocessing(self):
+        """What :meth:`SteinerSolver.prepare` computed for this backend."""
+        return tuple(self._backend.preprocessing)
+
+    def artifact(self, name: str):
+        """One preprocessing artifact by name ("graph", "ell"); None if absent."""
+        return self._artifacts.get(name)
+
+    def solve(self, seeds) -> SolveOutput:
+        """Solves one query: (S,) seed ids (numpy, list or tensor)."""
+        seeds = torch.as_tensor(seeds, dtype=torch.int32, device=self.device)
+        if seeds.dim() != 1:
+            raise ValueError(
+                f"backend {self.backend!r} expects (S,) seeds, got shape "
+                f"{tuple(seeds.shape)}"
+            )
+        return self._backend.solve(
+            self.config, self._artifacts, seeds, int(seeds.shape[0])
+        )
+
+
+class SteinerSolver:
+    """Validates the config, prepares graphs on ``device``, hands out solve
+    handles."""
+
+    def __init__(self, config: SolverConfig = SolverConfig(), device="cuda"):
+        if config.backend != "single":
+            raise NotImplementedError(f"backend={config.backend!r}: {NOT_PORTED}")
+        self.config = config
+        self.device = resolve_device(device)
+        self._backend = get_backend(config.backend)
+        self._backend.validate(config)
+
+    def prepare(self, graph) -> PreparedGraph:
+        """Runs the backend's one-time preprocessing for an in-memory
+        :class:`~repro_torch.core.graph.Graph` (moved to the solver's
+        device if it lives elsewhere)."""
+        artifacts = self._backend.prepare(self.config, graph, self.device)
+        return PreparedGraph(
+            self.config, self._backend, artifacts["graph"], artifacts, self.device
+        )
