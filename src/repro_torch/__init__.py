@@ -5,17 +5,22 @@ share no code.  This package mirrors its layout and names so that every
 module has an obvious counterpart:
 
 core/      graph containers, Voronoi state, distance graph, MST, tree
-kernels/   the min-plus ELL relaxation: CUDA C++ kernels for Hopper
-           (sm_90a, built with nvcc at first use) beside a plain PyTorch
-           version of each
+kernels/   hand-written CUDA C++ kernels for Hopper (sm_90a, built with nvcc
+           at first use) beside a plain PyTorch version of each: the
+           min-plus ELL relaxation (with a lane axis for query batches) and
+           the bucketed segment min
 solver/    SolverConfig -> SteinerSolver.prepare(graph) -> solve(seeds)
+serve/     query planning, the batched pipeline and the micro-batching
+           SteinerServer with its LRU result cache
+obs/       the metrics registry the server counts into
 data/      RMAT graphs and seed selection (numpy-identical to ``repro``)
 convert    numpy arrays of the JAX package -> this package's objects
 
 Entry points run on the GPU unless the caller asks for ``device="cpu"``.
 A CUDA tensor given to a kernel wrapper launches the kernel or raises; a CPU
-tensor takes the plain PyTorch version.  Only ``backend="single"`` with
-``mode="pallas"`` is ported so far (see ROADMAP.md for the rest).
+tensor takes the plain PyTorch version.  Only ``mode="pallas"`` is ported
+so far, for ``backend="single"`` and ``backend="batch"`` (see ROADMAP.md for
+the rest).
 """
 
 __version__ = "0.1.0"

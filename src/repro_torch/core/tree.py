@@ -119,17 +119,19 @@ def tree_edge_sets(st: VoronoiState, tree: SteinerTree, n_lanes=None):
     """Host-side: the undirected edge set {(u, v)} of G_S per lane.
 
     Arrays may carry a leading (B,) lane axis or none (one lane);
-    ``n_lanes`` materializes only the first lanes.
+    ``n_lanes`` materializes (and fetches) only the first lanes.
 
     Returns:
       list of ``frozenset[(u, v)]``, one per materialized lane.
     """
-    pred = np.atleast_2d(st.pred.cpu().numpy())
-    pe = np.atleast_2d(tree.path_edge.cpu().numpy())
-    bu = np.atleast_2d(tree.bridge_u.cpu().numpy())
-    bv = np.atleast_2d(tree.bridge_v.cpu().numpy())
-    bvalid = np.atleast_2d(tree.bridge_valid.cpu().numpy())
-    lanes = pe.shape[0] if n_lanes is None else n_lanes
+
+    def fetch(x):
+        x = x if x.dim() == 2 else x[None]
+        return (x if n_lanes is None else x[:n_lanes]).cpu().numpy()
+
+    pred, pe = fetch(st.pred), fetch(tree.path_edge)
+    bu, bv, bvalid = fetch(tree.bridge_u), fetch(tree.bridge_v), fetch(tree.bridge_valid)
+    lanes = pe.shape[0]
     out = []
     for i in range(lanes):
         es = set()

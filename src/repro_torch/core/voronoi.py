@@ -50,9 +50,13 @@ def _round_row(
     relaxations: torch.Tensor,
     dist: torch.Tensor,
 ) -> torch.Tensor:
-    """One telemetry row: (frontier, messages, relaxations, unreached), f32."""
-    unreached = (~torch.isfinite(dist)).sum()
-    return torch.stack([frontier, messages, relaxations, unreached]).to(torch.float32)
+    """One telemetry row: (frontier, messages, relaxations, unreached), f32.
+
+    With a leading lane axis (counts (B,), ``dist`` (B, N)) it gives one row
+    a lane, (B, 4).
+    """
+    unreached = (~torch.isfinite(dist)).sum(dim=-1)
+    return torch.stack([frontier, messages, relaxations, unreached], dim=-1).to(torch.float32)
 
 
 def _hist_write(hist: torch.Tensor, it: int, row: torch.Tensor) -> torch.Tensor:
@@ -79,3 +83,14 @@ def init_state(n: int, seeds: torch.Tensor) -> VoronoiState:
     )
     pred = torch.arange(n, dtype=torch.int32, device=dev)
     return VoronoiState(dist=dist, lab=lab, pred=pred)
+
+
+def init_states(n: int, seeds: torch.Tensor) -> VoronoiState:
+    """:func:`init_state` of every row of a (B, S) seed batch, stacked into
+    (B, N) tensors (a lane of duplicate seeds stays inert, as in one)."""
+    lanes = [init_state(n, row) for row in seeds]
+    return VoronoiState(
+        dist=torch.stack([st.dist for st in lanes]),
+        lab=torch.stack([st.lab for st in lanes]),
+        pred=torch.stack([st.pred for st in lanes]),
+    )

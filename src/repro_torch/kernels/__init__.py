@@ -3,7 +3,10 @@
 minplus/  the min-plus ELL relaxation of the Voronoi loop: ``minplus_call``
           (distances gathered from device memory) and
           ``minplus_blocked_call`` (distances staged through shared memory
-          in source slices), both in ``minplus/csrc/minplus.cu``.
+          in source slices), both in ``minplus/csrc/minplus.cu``; each
+          takes (N,) distances or a (B, N) batch of query lanes.
+segmin/   the bucketed lexicographic segment min ``segmin_bucketed_call``
+          (``segmin/csrc/segmin.cu``); no solver path calls it yet.
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version in ``ref.py``.  Sources are compiled with

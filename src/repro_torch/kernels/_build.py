@@ -28,7 +28,10 @@ from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR / "build"
-SOURCES = {"minplus": KERNELS_DIR / "minplus" / "csrc" / "minplus.cu"}
+SOURCES = {
+    "minplus": KERNELS_DIR / "minplus" / "csrc" / "minplus.cu",
+    "segmin": KERNELS_DIR / "segmin" / "csrc" / "segmin.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC",

@@ -33,6 +33,28 @@
 //   the TPU kernel's.  Lex-min is exact and order-free, so the output is
 //   bitwise equal to minplus_resident's.  N need not be a multiple of SB:
 //   the last slice is masked.
+//
+// The lane axis (the serving path's batch backend: B seed sets over one
+// graph, as jax.vmap of the Pallas calls).  dist/lab are (B, N) and the
+// outputs (B, R).  vmap gave the Pallas kernels a leading grid axis, so the
+// TPU program read every nbr/wgt tile once per lane.
+//
+// minplus_resident_lanes  one warp per row, as minplus_resident; a warp
+//   lane loads its (nbr, wgt) element once and then loops over the B lanes
+//   in groups of LANE_GROUP, gathering dist and lab of vertex u for each
+//   lane into one register accumulator triple per lane; the shuffle then
+//   reduces each lane's triple.  So a round reads the ELL once for
+//   B <= LANE_GROUP (a larger B re-reads the row, 256 B at K = 32, from L1
+//   once a group).  dist/lab come lane-minor, (N, B): the B values of one
+//   vertex are adjacent, so at B = 8 one 32-byte sector serves every lane's
+//   gather.  (Gathering from (B, N) rows made 8 random sectors a vertex out
+//   of a 537 MB working set, and the kernel ran slower than B launches of
+//   minplus_resident, each of whose 67 MB partly fits the 50 MB L2.)
+//   Bound: R*K*8 + B*(N*8 + R*12) bytes.  minplus_resident (B = 1) stays as
+//   it was, and the single-query path keeps using it.
+// minplus_blocked  takes the lane as blockIdx.y: each block stages its own
+//   lane's dist/lab slices, so the ELL is read B times (from L2 when it
+//   fits).  With gridDim.y = 1 it is the kernel above, unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,6 +63,7 @@
 namespace {
 
 constexpr int32_t IMAX = 0x7fffffff;
+constexpr int LANE_GROUP = 8;  // query lanes a warp carries in registers at once
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -102,6 +125,78 @@ __global__ void minplus_resident_kernel(const int32_t* __restrict__ nbr,
 }
 
 template <typename TD, typename TW>
+__global__ void minplus_resident_lanes_kernel(const int32_t* __restrict__ nbr,
+                                              const TW* __restrict__ wgt,
+                                              const TD* __restrict__ dist,
+                                              const int32_t* __restrict__ lab,
+                                              float* __restrict__ out_m,
+                                              int32_t* __restrict__ out_l,
+                                              int32_t* __restrict__ out_s, int64_t R, int K,
+                                              int B, int rows_per_block) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int64_t row0 = (int64_t)blockIdx.x * rows_per_block;
+  const int64_t row_end = row0 + rows_per_block < R ? row0 + rows_per_block : R;
+  for (int64_t r = row0 + warp; r < row_end; r += nwarps) {
+    const int64_t base = r * (int64_t)K;
+    for (int b0 = 0; b0 < B; b0 += LANE_GROUP) {
+      const int nb = B - b0 < LANE_GROUP ? B - b0 : LANE_GROUP;  // warp-uniform
+      float bd[LANE_GROUP];
+      int32_t bl[LANE_GROUP], bs[LANE_GROUP];
+#pragma unroll
+      for (int i = 0; i < LANE_GROUP; ++i) {
+        bd[i] = INFINITY;
+        bl[i] = IMAX;
+        bs[i] = IMAX;
+      }
+      for (int j = lane; j < K; j += 32) {
+        const float w = to_f32(__ldg(wgt + base + j));
+        if (isinf(w)) continue;  // padding lane: +inf in every query lane
+        const int32_t u = __ldg(nbr + base + j);
+#pragma unroll
+        for (int i = 0; i < LANE_GROUP; ++i) {
+          if (i < nb) {
+            const int64_t off = (int64_t)u * B + b0 + i;
+            const float c = __fadd_rn(to_f32(__ldg(dist + off)), w);
+            if (isfinite(c)) {
+              const int32_t l = __ldg(lab + off);
+              if (lex_less(c, l, u, bd[i], bl[i], bs[i])) {
+                bd[i] = c;
+                bl[i] = l;
+                bs[i] = u;
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < LANE_GROUP; ++i) {
+        if (i < nb) {  // nb is the same in all 32 lanes: every lane shuffles
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) {
+            const float od = __shfl_xor_sync(0xffffffffu, bd[i], off);
+            const int32_t ol = __shfl_xor_sync(0xffffffffu, bl[i], off);
+            const int32_t os = __shfl_xor_sync(0xffffffffu, bs[i], off);
+            if (lex_less(od, ol, os, bd[i], bl[i], bs[i])) {
+              bd[i] = od;
+              bl[i] = ol;
+              bs[i] = os;
+            }
+          }
+          if (lane == 0) {
+            const int64_t o = (int64_t)(b0 + i) * R + r;
+            out_m[o] = bd[i];
+            out_l[o] = bl[i];
+            out_s[o] = bs[i];
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename TD, typename TW>
 __global__ void minplus_blocked_kernel(const int32_t* __restrict__ nbr,
                                        const TW* __restrict__ wgt,
                                        const TD* __restrict__ dist,
@@ -113,6 +208,12 @@ __global__ void minplus_blocked_kernel(const int32_t* __restrict__ nbr,
   extern __shared__ __align__(16) unsigned char smem[];
   int32_t* s_lab = reinterpret_cast<int32_t*>(smem);
   TD* s_dist = reinterpret_cast<TD*>(smem + (size_t)SB * sizeof(int32_t));
+  // query lane blockIdx.y: its own (N,) dist/lab and (R,) outputs
+  dist += (int64_t)blockIdx.y * N;
+  lab += (int64_t)blockIdx.y * N;
+  out_m += (int64_t)blockIdx.y * R;
+  out_l += (int64_t)blockIdx.y * R;
+  out_s += (int64_t)blockIdx.y * R;
   const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = r < R;
   const int64_t base = r * (int64_t)K;
@@ -178,10 +279,26 @@ struct LaunchResident {
 };
 
 template <typename TD, typename TW>
+struct LaunchResidentLanes {
+  static cudaError_t run(const void* nbr, const void* wgt, const void* dist, const void* lab,
+                         void* out_m, void* out_l, void* out_s, int64_t R, int K, int B,
+                         int rows_per_block, cudaStream_t stream) {
+    const int warps = rows_per_block < 8 ? rows_per_block : 8;
+    const int64_t blocks = (R + rows_per_block - 1) / rows_per_block;
+    minplus_resident_lanes_kernel<TD, TW><<<(unsigned)blocks, warps * 32, 0, stream>>>(
+        static_cast<const int32_t*>(nbr), static_cast<const TW*>(wgt),
+        static_cast<const TD*>(dist), static_cast<const int32_t*>(lab),
+        static_cast<float*>(out_m), static_cast<int32_t*>(out_l),
+        static_cast<int32_t*>(out_s), R, K, B, rows_per_block);
+    return cudaGetLastError();
+  }
+};
+
+template <typename TD, typename TW>
 struct LaunchBlocked {
   static cudaError_t run(const void* nbr, const void* wgt, const void* dist, const void* lab,
                          void* out_m, void* out_l, void* out_s, int64_t R, int K, int64_t N,
-                         int SB, int rows_per_block, cudaStream_t stream) {
+                         int SB, int B, int rows_per_block, cudaStream_t stream) {
     const size_t smem = (size_t)SB * (sizeof(int32_t) + sizeof(TD));
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
@@ -190,7 +307,8 @@ struct LaunchBlocked {
       if (e != cudaSuccess) return e;
     }
     const int64_t blocks = (R + rows_per_block - 1) / rows_per_block;
-    minplus_blocked_kernel<TD, TW><<<(unsigned)blocks, rows_per_block, smem, stream>>>(
+    const dim3 grid((unsigned)blocks, (unsigned)B);
+    minplus_blocked_kernel<TD, TW><<<grid, rows_per_block, smem, stream>>>(
         static_cast<const int32_t*>(nbr), static_cast<const TW*>(wgt),
         static_cast<const TD*>(dist), static_cast<const int32_t*>(lab),
         static_cast<float*>(out_m), static_cast<int32_t*>(out_l),
@@ -214,14 +332,27 @@ int minplus_resident(int device, int dist_dtype, int wgt_dtype, const void* nbr,
                                        static_cast<cudaStream_t>(stream));
 }
 
+// dist/lab lane-minor: (N, B).
+int minplus_resident_lanes(int device, int dist_dtype, int wgt_dtype, const void* nbr,
+                           const void* wgt, const void* dist, const void* lab, void* out_m,
+                           void* out_l, void* out_s, int64_t R, int K, int B,
+                           int rows_per_block, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  return (int)dispatch<LaunchResidentLanes>(dist_dtype, wgt_dtype, nbr, wgt, dist, lab,
+                                            out_m, out_l, out_s, R, K, B, rows_per_block,
+                                            static_cast<cudaStream_t>(stream));
+}
+
+// B query lanes (gridDim.y); B = 1 for an (N,) dist.
 int minplus_blocked(int device, int dist_dtype, int wgt_dtype, const void* nbr,
                     const void* wgt, const void* dist, const void* lab, void* out_m,
-                    void* out_l, void* out_s, int64_t R, int K, int64_t N, int SB,
+                    void* out_l, void* out_s, int64_t R, int K, int64_t N, int SB, int B,
                     int rows_per_block, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   return (int)dispatch<LaunchBlocked>(dist_dtype, wgt_dtype, nbr, wgt, dist, lab, out_m,
-                                      out_l, out_s, R, K, N, SB, rows_per_block,
+                                      out_l, out_s, R, K, N, SB, B, rows_per_block,
                                       static_cast<cudaStream_t>(stream));
 }
 

@@ -5,6 +5,12 @@ A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 version :func:`~repro_torch.kernels.minplus.ref.minplus_torch`.  Each
 wrapper counts its launches in ``<wrapper>.launches``.
 
+``dist`` and ``lab`` may carry a leading (B,) lane axis, one row per query
+of a batch over the same graph (what ``jax.vmap`` of the Pallas calls
+computes); the outputs are then (B, R).  An (N,) input launches the
+single-query kernel as before.  ``<wrapper>.lane_launches`` counts the
+launches that had a lane axis.
+
 ``block_rows`` is the number of ELL rows one thread block owns; it never
 changes results.  ``interpret`` is accepted for signature parity with the
 Pallas wrappers and ignored: there is no interpreter for a CUDA kernel.
@@ -28,11 +34,17 @@ _ARGTYPES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P,
     ],
+    "minplus_resident_lanes": [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+    ],
     "minplus_blocked": [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, _P,
     ],
 }
+_MAX_LANES = 65535  # gridDim.y of the blocked kernel
 
 
 def _entry(name: str):
@@ -57,8 +69,12 @@ def _check_inputs(nbr, wgt, dist, lab, block_rows):
         raise ValueError(
             f"wgt must be {tuple(nbr.shape)} f32/bf16, got {tuple(wgt.shape)} {wgt.dtype}"
         )
-    if dist.dim() != 1 or dist.dtype not in _DTYPE_CODES:
-        raise ValueError(f"dist must be (N,) f32/bf16, got {tuple(dist.shape)} {dist.dtype}")
+    if dist.dim() not in (1, 2) or dist.dtype not in _DTYPE_CODES:
+        raise ValueError(
+            f"dist must be (N,) or (B, N) f32/bf16, got {tuple(dist.shape)} {dist.dtype}"
+        )
+    if dist.dim() == 2 and not 1 <= dist.shape[0] <= _MAX_LANES:
+        raise ValueError(f"dist has {dist.shape[0]} lanes; 1..{_MAX_LANES} are supported")
     if lab.shape != dist.shape or lab.dtype != torch.int32:
         raise ValueError(f"lab must be {tuple(dist.shape)} int32, got {lab.dtype}")
     if not (isinstance(block_rows, int) and block_rows >= 1):
@@ -71,12 +87,14 @@ def _check_inputs(nbr, wgt, dist, lab, block_rows):
         raise ValueError(f"unsupported device {dev}: the kernels run on cuda")
 
 
-def _launch(name, nbr, wgt, dist, lab, *extra):
+def _launch(name, nbr, wgt, dist, lab, *extra, lanes=None):
+    """Launches ``name`` with (R,) outputs, or (lanes, R) ones."""
     R, K = nbr.shape
     dev = nbr.device
-    m = torch.empty(R, dtype=torch.float32, device=dev)
-    ml = torch.empty(R, dtype=torch.int32, device=dev)
-    ms = torch.empty(R, dtype=torch.int32, device=dev)
+    shape = (R,) if lanes is None else (lanes, R)
+    m = torch.empty(shape, dtype=torch.float32, device=dev)
+    ml = torch.empty(shape, dtype=torch.int32, device=dev)
+    ms = torch.empty(shape, dtype=torch.int32, device=dev)
     if R == 0:
         return m, ml, ms
     lib, fn = _entry(name)
@@ -107,23 +125,36 @@ def minplus_call(
     Args:
       nbr: (R, K) int32 neighbor ids (padding: any id with wgt=+inf).
       wgt: (R, K) f32/bf16 weights (+inf padding).
-      dist: (N,) f32/bf16 distances (no NaN, no -inf).
-      lab: (N,) int32 labels.
+      dist: (N,) or (B, N) f32/bf16 distances (no NaN, no -inf).
+      lab: int32 labels, the shape of ``dist``.
       block_rows: rows per thread block; any R is accepted.
       interpret: ignored (no interpreter for a CUDA kernel).
 
     Returns:
-      (m, ml, ms): (R,) f32 / i32 / i32 per-row lexicographic minima.
+      (m, ml, ms): (R,) or (B, R) f32 / i32 / i32 per-row lexicographic
+      minima.
     """
     _check_inputs(nbr, wgt, dist, lab, block_rows)
     if nbr.device.type == "cpu":
         return minplus_torch(nbr, wgt, dist, lab)
-    out = _launch("minplus_resident", nbr, wgt, dist, lab, block_rows)
-    minplus_call.launches += nbr.shape[0] > 0
+    launched = nbr.shape[0] > 0
+    if dist.dim() == 1:
+        out = _launch("minplus_resident", nbr, wgt, dist, lab, block_rows)
+    else:
+        # the lane kernel gathers (N, B) lane-minor copies: the B values of
+        # one vertex share a 32-byte sector (one device-memory read at B = 8)
+        B = dist.shape[0]
+        out = _launch(
+            "minplus_resident_lanes", nbr, wgt, dist.t().contiguous(),
+            lab.t().contiguous(), B, block_rows, lanes=B,
+        )
+        minplus_call.lane_launches += launched
+    minplus_call.launches += launched
     return out
 
 
 minplus_call.launches = 0
+minplus_call.lane_launches = 0
 
 
 def minplus_blocked_call(
@@ -139,8 +170,9 @@ def minplus_blocked_call(
     """Source-blocked min-plus relaxation (replaces ``minplus_blocked_call``).
 
     The distance and label vectors are staged through shared memory in
-    (src_block,) slices; the output is bitwise equal to :func:`minplus_call`.
-    N need not be a multiple of ``src_block``.  ``block_rows`` (at most
+    (src_block,) slices; the output is bitwise equal to :func:`minplus_call`,
+    with or without a lane axis (one grid row of blocks a lane).  N need not
+    be a multiple of ``src_block``.  ``block_rows`` (at most
     1024) is the number of rows, one thread each, of a thread block.
     ``interpret`` is ignored.
     """
@@ -155,11 +187,17 @@ def minplus_blocked_call(
         raise ValueError(
             f"src_block={src_block} needs more than {_MAX_SMEM} B of shared memory"
         )
+    B = dist.shape[0] if dist.dim() == 2 else 1
+    launched = nbr.shape[0] > 0
     out = _launch(
-        "minplus_blocked", nbr, wgt, dist, lab, dist.shape[0], src_block, block_rows
+        "minplus_blocked", nbr, wgt, dist, lab, dist.shape[-1], src_block, B, block_rows,
+        lanes=B if dist.dim() == 2 else None,
     )
-    minplus_blocked_call.launches += nbr.shape[0] > 0
+    minplus_blocked_call.launches += launched
+    if dist.dim() == 2:
+        minplus_blocked_call.lane_launches += launched
     return out
 
 
 minplus_blocked_call.launches = 0
+minplus_blocked_call.lane_launches = 0

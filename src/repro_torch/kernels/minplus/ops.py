@@ -6,6 +6,10 @@ iterates it to the fixpoint (the execution engine behind
 ``SolverConfig(mode="pallas")``).  The JAX ``while_loop`` becomes a Python
 loop with one host sync a round (the "did anything improve" test).
 
+:func:`voronoi_cells_pallas_lanes` is the batch backend's loop: what
+``jax.vmap(voronoi_cells_pallas)`` computes for a (B, S) seed batch, with
+one kernel launch a round for all B lanes and per-lane convergence masks.
+
 Not ported yet: ``voronoi_cells_pallas_frontier`` (see ROADMAP.md).
 """
 
@@ -22,6 +26,7 @@ from repro_torch.core.voronoi import (
     _hist_write,
     _round_row,
     init_state,
+    init_states,
 )
 from repro_torch.kernels.minplus.minplus import minplus_blocked_call, minplus_call
 
@@ -35,31 +40,49 @@ def _cap(max_iters: Optional[int], default: int) -> int:
     return min(max_iters if max_iters is not None else default, 2**31 - 2)
 
 
-def _pad_rows(x: torch.Tensor, mult: int, fill) -> torch.Tensor:
-    """Pads the leading axis of ``x`` with ``fill`` up to a multiple of ``mult``."""
-    pad = (-x.shape[0]) % mult
+def _pad_rows(x: torch.Tensor, mult: int, fill, dim: int = 0) -> torch.Tensor:
+    """Pads axis ``dim`` of ``x`` with ``fill`` up to a multiple of ``mult``."""
+    pad = (-x.shape[dim]) % mult
     if pad == 0:
         return x
-    return torch.cat([x, torch.full((pad, *x.shape[1:]), fill, dtype=x.dtype, device=x.device)])
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, torch.full(shape, fill, dtype=x.dtype, device=x.device)], dim=dim)
 
 
-def _rows_to_vertices(m, ml, ms, row2v, n, st: VoronoiState):
+def lane_segments(row2v: torch.Tensor, n: int, lanes: int) -> torch.Tensor:
+    """Flat vertex ids ``row2v + lane * n`` of the (lanes, R) kernel output,
+    in int64 (lanes * n passes 2**31 on large graphs)."""
+    offs = torch.arange(lanes, dtype=torch.int64, device=row2v.device)[:, None] * n
+    return (row2v.to(torch.int64) + offs).reshape(-1)
+
+
+def _rows_to_vertices(m, ml, ms, seg, st: VoronoiState, active=None):
     """Reduces per-row lexicographic minima to per-vertex state updates.
 
     Split high-degree rows recombine lexicographically; ``upd`` is the
-    strict-improvement mask over (dist, lab, pred).
+    strict-improvement mask over (dist, lab, pred).  ``seg`` maps each row
+    to its vertex; with a lane axis (m (B, R), state (B, N)) it holds the
+    flat ids of :func:`lane_segments`, so one reduction serves every lane.
+    ``active`` (B,) keeps the state of the lanes it marks False.
     """
-    mv = segment_min(m, row2v, n, INF)
-    e1 = m == mv[row2v]
-    mlv = segment_min(torch.where(e1, ml, IMAX), row2v, n, IMAX)
-    e2 = e1 & (ml == mlv[row2v])
-    msv = segment_min(torch.where(e2, ms, IMAX), row2v, n, IMAX)
+    nseg = st.dist.numel()
+    m, ml, ms = m.reshape(-1), ml.reshape(-1), ms.reshape(-1)
+    mv = segment_min(m, seg, nseg, INF)
+    e1 = m == mv[seg]
+    mlv = segment_min(torch.where(e1, ml, IMAX), seg, nseg, IMAX)
+    e2 = e1 & (ml == mlv[seg])
+    msv = segment_min(torch.where(e2, ms, IMAX), seg, nseg, IMAX)
+    shape = st.dist.shape
+    mv, mlv, msv = mv.view(shape), mlv.view(shape), msv.view(shape)
     same = mv == st.dist
     upd = torch.isfinite(mv) & (
         (mv < st.dist)
         | (same & (mlv < st.lab))
         | (same & (mlv == st.lab) & (msv < st.pred))
     )
+    if active is not None:
+        upd &= active[:, None]
     new = VoronoiState(
         dist=torch.where(upd, mv, st.dist),
         lab=torch.where(upd, mlv, st.lab),
@@ -72,12 +95,13 @@ def _call_kernel(nbr, wgt, dist, lab, *, block_rows, src_block):
     """Dispatch one (rows, k) tile to the resident or source-blocked kernel.
 
     For the blocked kernel, dist/lab are padded with the identity (+inf,
-    IMAX) to a ``src_block`` multiple, as the reference does.
+    IMAX) to a ``src_block`` multiple, as the reference does.  dist/lab may
+    be (N,) or (B, N).
     """
     if src_block is None:
         return minplus_call(nbr, wgt, dist, lab, block_rows=block_rows)
-    dist = _pad_rows(dist, src_block, INF)
-    lab = _pad_rows(lab, src_block, IMAX)
+    dist = _pad_rows(dist, src_block, INF, dim=-1)
+    lab = _pad_rows(lab, src_block, IMAX, dim=-1)
     return minplus_blocked_call(
         nbr, wgt, dist, lab, block_rows=block_rows, src_block=src_block
     )
@@ -90,6 +114,8 @@ def relax_ell(
     block_rows: int = 256,
     src_block: Optional[int] = None,
     interpret: Optional[bool] = None,
+    seg: Optional[torch.Tensor] = None,
+    active: Optional[torch.Tensor] = None,
 ) -> tuple[VoronoiState, torch.Tensor]:
     """One min-plus relaxation of the full ELL adjacency via the kernel.
 
@@ -98,14 +124,28 @@ def relax_ell(
     inert (+inf weights), so the port skips that copy of the adjacency.
     ``interpret`` is ignored.
 
+    A state with a leading (B,) lane axis relaxes every lane in one kernel
+    launch; ``seg`` then holds its :func:`lane_segments` (computed here if
+    not given) and ``active`` (B,) the lanes whose state may change.
+
     Returns:
-      (new_state, upd): ``upd`` is the (N,) bool mask of vertices whose
-      (dist, lab, pred) strictly improved.
+      (new_state, upd): ``upd`` is the (N,) or (B, N) bool mask of vertices
+      whose (dist, lab, pred) strictly improved.
     """
     m, ml, ms = _call_kernel(
         ell.nbr, ell.wgt, st.dist, st.lab, block_rows=block_rows, src_block=src_block
     )
-    return _rows_to_vertices(m, ml, ms, ell.row2v, ell.n, st)
+    if seg is None:
+        seg = ell.row2v if st.dist.dim() == 1 else lane_segments(
+            ell.row2v, ell.n, st.dist.shape[0])
+    return _rows_to_vertices(m, ml, ms, seg, st, active)
+
+
+def _out_degree(ell: EllGraph) -> torch.Tensor:
+    """(N,) int64 out-degree: the ELL rows of a vertex sum their real lanes."""
+    return torch.zeros(ell.n, dtype=torch.int64, device=ell.nbr.device).index_add_(
+        0, ell.row2v, torch.isfinite(ell.wgt).sum(dim=1)
+    )
 
 
 def voronoi_cells_pallas(
@@ -131,10 +171,7 @@ def voronoi_cells_pallas(
     dev = ell.nbr.device
     cap = _cap(max_iters, 4 * n + 64)
     st = init_state(n, seeds)
-    # out-degree per vertex: ELL rows of one vertex sum their real lanes
-    deg = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
-        0, ell.row2v, torch.isfinite(ell.wgt).sum(dim=1)
-    )
+    deg = _out_degree(ell)
     hist = torch.zeros((telemetry_rounds + 1, 4), dtype=torch.float32, device=dev)
     rlx = torch.zeros((), dtype=torch.float32, device=dev)
     msg = torch.zeros((), dtype=torch.float32, device=dev)
@@ -151,6 +188,72 @@ def voronoi_cells_pallas(
         changed = bool(imp)  # the round's one host sync
     return st, VoronoiStats(
         iterations=torch.tensor(it, dtype=torch.int32, device=dev),
+        relaxations=rlx,
+        messages=msg,
+        history=hist if telemetry_rounds > 0 else None,
+    )
+
+
+def voronoi_cells_pallas_lanes(
+    ell: EllGraph,
+    seeds: torch.Tensor,
+    *,
+    block_rows: int = 256,
+    src_block: Optional[int] = None,
+    interpret: Optional[bool] = None,
+    max_iters: Optional[int] = None,
+    telemetry_rounds: int = 0,
+) -> tuple[VoronoiState, VoronoiStats]:
+    """:func:`voronoi_cells_pallas` of every row of a (B, S) seed batch.
+
+    What ``jax.vmap`` of the reference computes: the batched ``while_loop``
+    runs its body while any lane's condition holds and keeps the old carry
+    of the lanes whose condition failed.  Here every round relaxes all B
+    lanes in one kernel launch (the ELL is read once, not B times) and an
+    ``active`` (B,) mask stands for the per-lane condition: a lane whose
+    round improved nothing keeps its state, counters and history from then
+    on and stops counting rounds.  Lanes start together, so the round cap
+    is the same for each.  One host sync a round (is any lane active).
+    Per-lane counters are rounded to f32 exactly as the single loop rounds
+    them, so a lane equals :func:`voronoi_cells_pallas` of its row bit for
+    bit.  ``interpret`` is ignored.
+
+    Returns:
+      (state, stats) with a leading (B,) axis on every array: (B, N) state,
+      (B,) counters, (B, H+1, 4) history.
+    """
+    n = ell.n
+    dev = ell.nbr.device
+    B = seeds.shape[0]
+    cap = _cap(max_iters, 4 * n + 64)
+    st = init_states(n, seeds)
+    deg = _out_degree(ell)
+    seg = lane_segments(ell.row2v, n, B)
+    hist = torch.zeros((B, telemetry_rounds + 1, 4), dtype=torch.float32, device=dev)
+    rlx = torch.zeros(B, dtype=torch.float32, device=dev)
+    msg = torch.zeros(B, dtype=torch.float32, device=dev)
+    it = torch.zeros(B, dtype=torch.int32, device=dev)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    rounds = 0
+    while rounds < cap:
+        st, upd = relax_ell(
+            ell, st, block_rows=block_rows, src_block=src_block, seg=seg, active=active
+        )
+        imp = upd.sum(dim=1)  # 0 in the lanes that were done
+        dmsg = torch.where(upd, deg, 0).sum(dim=1)
+        # every active lane is at round `rounds`; the others keep their rows
+        k = min(rounds, telemetry_rounds)
+        row = _round_row(imp, dmsg, imp, st.dist)
+        hist[:, k] = torch.where(active[:, None], row, hist[:, k])
+        rlx += imp.to(torch.float32)
+        msg += dmsg.to(torch.float32)
+        it += active.to(torch.int32)
+        active &= imp > 0
+        rounds += 1
+        if not bool(active.any()):  # the round's one host sync
+            break
+    return st, VoronoiStats(
+        iterations=it,
         relaxations=rlx,
         messages=msg,
         history=hist if telemetry_rounds > 0 else None,

@@ -13,15 +13,17 @@ def minplus_torch(
     """Row-wise lexicographic min of ``(dist[nbr] + wgt, lab[nbr], nbr)``.
 
     A lane whose candidate is not finite becomes ``(+inf, IMAX, IMAX)``;
-    inputs are upcast to f32 before the add.  Returns (R,) f32 / i32 / i32.
+    inputs are upcast to f32 before the add.  ``dist`` and ``lab`` are (N,)
+    or (B, N) with a leading query-lane axis; returns (R,) or (B, R)
+    f32 / i32 / i32.
     """
-    cand = dist[nbr].to(torch.float32) + wgt.to(torch.float32)
+    cand = dist[..., nbr].to(torch.float32) + wgt.to(torch.float32)
     fin = torch.isfinite(cand)
-    l = torch.where(fin, lab[nbr], IMAX)
+    l = torch.where(fin, lab[..., nbr], IMAX)
     s = torch.where(fin, nbr, IMAX)
-    m = cand.amin(dim=1)
-    e1 = cand == m[:, None]
-    ml = torch.where(e1, l, IMAX).amin(dim=1)
-    e2 = e1 & (l == ml[:, None])
-    ms = torch.where(e2, s, IMAX).amin(dim=1)
+    m = cand.amin(dim=-1)
+    e1 = cand == m[..., None]
+    ml = torch.where(e1, l, IMAX).amin(dim=-1)
+    e2 = e1 & (l == ml[..., None])
+    ms = torch.where(e2, s, IMAX).amin(dim=-1)
     return m, ml, ms

@@ -1,9 +1,10 @@
 """Solver API: ``SteinerSolver(cfg, device=...).prepare(graph).solve(seeds)``.
 
-Only ``SolverConfig(backend="single", mode="pallas")`` is ported so far.
+Only ``mode="pallas"`` with ``backend="single"`` or ``backend="batch"`` is
+ported so far.
 """
 
-from repro_torch.solver import backends as _backends  # registers "single"
+from repro_torch.solver import backends as _backends  # registers the backends
 from repro_torch.solver.api import PreparedGraph, SteinerSolver
 from repro_torch.solver.config import BACKENDS, MODES, SolverConfig
 from repro_torch.solver.registry import (

@@ -9,8 +9,10 @@ Usage::
     out = handle.solve(seeds)             # min-plus kernel rounds + tail
     out.total_distance                    # D(G_S)
 
-The solver runs on ``device="cuda"`` unless given another device; with no
-CUDA device present the default raises instead of running on the CPU.
+``SolverConfig(backend="batch", mode="pallas")`` takes a (B, S) seed batch
+instead and returns (B,) totals and edge counts.  The solver runs on
+``device="cuda"`` unless given another device; with no CUDA device present
+the default raises instead of running on the CPU.
 """
 
 from __future__ import annotations
@@ -60,15 +62,17 @@ class PreparedGraph:
         return self._artifacts.get(name)
 
     def solve(self, seeds) -> SolveOutput:
-        """Solves one query: (S,) seed ids (numpy, list or tensor)."""
+        """Solves one query, (S,) seed ids, or a (B, S) batch for
+        backend="batch" (numpy, list or tensor)."""
         seeds = torch.as_tensor(seeds, dtype=torch.int32, device=self.device)
-        if seeds.dim() != 1:
+        if seeds.dim() != self._backend.seeds_ndim:
+            want = "(S,)" if self._backend.seeds_ndim == 1 else "(B, S)"
             raise ValueError(
-                f"backend {self.backend!r} expects (S,) seeds, got shape "
+                f"backend {self.backend!r} expects {want} seeds, got shape "
                 f"{tuple(seeds.shape)}"
             )
         return self._backend.solve(
-            self.config, self._artifacts, seeds, int(seeds.shape[0])
+            self.config, self._artifacts, seeds, int(seeds.shape[-1])
         )
 
 
@@ -77,7 +81,7 @@ class SteinerSolver:
     handles."""
 
     def __init__(self, config: SolverConfig = SolverConfig(), device="cuda"):
-        if config.backend != "single":
+        if config.backend not in ("single", "batch"):
             raise NotImplementedError(f"backend={config.backend!r}: {NOT_PORTED}")
         self.config = config
         self.device = resolve_device(device)

@@ -1,24 +1,37 @@
 """The execution strategies behind the solver registry.
 
-Ported so far: ``"single"`` with ``mode="pallas"``, the min-plus kernel
-schedule (:func:`repro_torch.kernels.minplus.ops.voronoi_cells_pallas`)
-followed by :func:`repro_torch.core.steiner.finish_pipeline`.  Every other
-(backend, mode) pair, the ``pallas_frontier`` schedule and graph-store
-inputs raise ``NotImplementedError`` (see ROADMAP.md).
+Ported so far, both with ``mode="pallas"`` only:
+
+  "single"  one query: the min-plus kernel schedule
+            (:func:`repro_torch.kernels.minplus.ops.voronoi_cells_pallas`)
+            followed by :func:`repro_torch.core.steiner.finish_pipeline`.
+  "batch"   B queries against one resident graph (the serving layer's
+            backend): the batched fixpoint
+            (:func:`~repro_torch.kernels.minplus.ops.voronoi_cells_pallas_lanes`,
+            one kernel launch a round for all lanes), then the tail lane by
+            lane.  Every lane equals a single solve of its row bit for bit.
+
+Every other (backend, mode) pair, the ``pallas_frontier`` schedule and
+graph-store inputs raise ``NotImplementedError`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import steiner as smod
+from repro_torch.core import tree as treemod
+from repro_torch.core import voronoi as vmod
 from repro_torch.core.graph import EllGraph, Graph, ell_view_cached
 from repro_torch.kernels.minplus import ops as kops
 from repro_torch.solver.config import SolverConfig
 from repro_torch.solver.registry import (
     SolveOutput,
+    SolveTelemetry,
     register_backend,
     telemetry_from_counts,
     to_host,
@@ -27,11 +40,11 @@ from repro_torch.solver.registry import (
 NOT_PORTED = "not ported yet: see ROADMAP.md"
 
 
-@register_backend("single")
-class SingleBackend:
-    """One query on one device; the min-plus kernel schedule."""
+class _PallasBackend:
+    """What the single and batch backends share: validation and prepare."""
 
     preprocessing = ("ell_view [mode=pallas]",)
+    seeds_ndim = 1
 
     def validate(self, cfg: SolverConfig) -> None:
         if cfg.backend != self.name:
@@ -56,6 +69,11 @@ class SingleBackend:
             )
         g = g.to(device)
         return {"graph": g, "ell": ell_view_cached(g, cfg.ell_width)}
+
+
+@register_backend("single")
+class SingleBackend(_PallasBackend):
+    """One query on one device; the min-plus kernel schedule."""
 
     def solve(self, cfg, artifacts, seeds, num_seeds) -> SolveOutput:
         res = self.solve_raw(
@@ -95,3 +113,84 @@ class SingleBackend:
             telemetry_rounds=cfg.telemetry_rounds,
         )
         return smod.finish_pipeline(g, st, stats, num_seeds, cfg.mst_algo)
+
+
+@register_backend("batch")
+class BatchBackend(_PallasBackend):
+    """B queries a call against one resident graph.
+
+    The Voronoi fixpoint runs batched (one kernel launch a round for all B
+    lanes); the tail (distance graph, Prim, tree) runs lane by lane, since
+    its E-sized temporaries times B would not fit beside a full-width graph
+    and its output is per lane anyway.
+    """
+
+    seeds_ndim = 2
+
+    def solve(self, cfg, artifacts, seeds, num_seeds) -> SolveOutput:
+        res = self.solve_raw(
+            cfg, artifacts["graph"], seeds, num_seeds, ell=artifacts["ell"]
+        )
+        # Lane aggregation as in the reference: iterations = slowest lane,
+        # f32 counters summed with np.sum, history rows summed (a finished
+        # lane's rows stopped growing).  One fetch for the whole batch.
+        st = res.stats
+        it, rlx, msg, hist, td, ne = to_host(
+            st.iterations, st.relaxations, st.messages, st.history,
+            res.tree.total_distance, res.tree.num_edges,
+        )
+        iters = int(np.max(it))
+        per_round = None
+        if hist is not None and cfg.telemetry_rounds > 0:
+            per_round = hist.sum(axis=0)[: min(iters, cfg.telemetry_rounds)]
+        telem = SolveTelemetry(
+            iterations=iters,
+            relaxations=int(round(float(np.sum(rlx)))),
+            messages=int(round(float(np.sum(msg)))),
+            per_round=per_round,
+        )
+        return SolveOutput(total_distance=td, num_edges=ne, raw=res, telemetry=telem)
+
+    def solve_raw(
+        self,
+        cfg: SolverConfig,
+        g: Graph,
+        seeds,
+        num_seeds: int,
+        ell: Optional[EllGraph] = None,
+    ) -> smod.SteinerResult:
+        """Runs the batched pipeline on the graph's device; returns a
+        :class:`SteinerResult` with a leading (B,) axis on every array."""
+        if ell is None:
+            ell = ell_view_cached(g, cfg.ell_width)
+        seeds = torch.as_tensor(seeds, dtype=torch.int32, device=g.device)
+        if seeds.dim() != 2:
+            raise ValueError(f"seeds must be (B, S), got shape {tuple(seeds.shape)}")
+        st, stats = kops.voronoi_cells_pallas_lanes(
+            ell,
+            seeds,
+            block_rows=cfg.block_rows,
+            src_block=cfg.src_block,
+            max_iters=cfg.max_iters,
+            telemetry_rounds=cfg.telemetry_rounds,
+        )
+        lanes = []
+        for b in range(seeds.shape[0]):
+            lane_st = vmod.VoronoiState(dist=st.dist[b], lab=st.lab[b], pred=st.pred[b])
+            lane_stats = vmod.VoronoiStats(
+                iterations=stats.iterations[b], relaxations=stats.relaxations[b],
+                messages=stats.messages[b],
+                history=None if stats.history is None else stats.history[b],
+            )
+            lanes.append(smod.finish_pipeline(g, lane_st, lane_stats, num_seeds, cfg.mst_algo))
+        tree = treemod.SteinerTree(**{
+            f.name: torch.stack([getattr(r.tree, f.name) for r in lanes])
+            for f in dataclasses.fields(treemod.SteinerTree)
+        })
+        return smod.SteinerResult(
+            tree=tree,
+            state=st,
+            stats=stats,
+            parent=torch.stack([r.parent for r in lanes]),
+            dmat=torch.stack([r.dmat for r in lanes]),
+        )

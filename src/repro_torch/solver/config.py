@@ -2,8 +2,9 @@
 
 The same fields, defaults and validation as ``repro.solver.config``, so one
 :class:`SolverConfig` value describes a solve in both packages.  This
-package runs only ``backend="single"`` with ``mode="pallas"`` so far; the
-solver rejects the other combinations (see ROADMAP.md).  The device is not a
+package runs only ``mode="pallas"`` with ``backend="single"`` or
+``backend="batch"`` so far; the solver rejects the other combinations (see
+ROADMAP.md).  The device is not a
 config field: it is an argument of :class:`~repro_torch.solver.SteinerSolver`.
 """
 

@@ -154,7 +154,7 @@ def test_config_fields_and_defaults_match_reference():
     dict(backend="single", mode="bucket"),
     dict(backend="single", mode="dense"),
     dict(backend="single", mode="frontier"),
-    dict(backend="batch", mode="pallas"),
+    dict(backend="batch", mode="bucket"),
     dict(backend="mesh1d", mode="dense"),
     dict(backend="single", mode="pallas", pallas_frontier=True),
     dict(backend="single", mode="pallas", mst_algo="boruvka"),
@@ -185,8 +185,9 @@ def test_default_device_is_cuda():
 
 def test_registry_and_host_fetch():
     assert get_backend("single").name == "single"
+    assert get_backend("batch").name == "batch"
     with pytest.raises(KeyError, match="unknown backend"):
-        get_backend("batch")
+        get_backend("mesh1d")
     a, b, c, d = to_host(torch.tensor(3, dtype=torch.int32), torch.tensor([1.5, np.inf]),
                          None, torch.tensor([True, False]))
     assert a.dtype == np.int32 and int(a) == 3
@@ -215,6 +216,26 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) >= 15
+
+
+def test_importing_the_port_server_loads_no_jax_and_no_repro():
+    """The serving entry points and the segment-min kernel import without jax
+    or the JAX package, as a server process on the card imports them."""
+    code = (
+        "import sys\n"
+        "from repro_torch.serve import SteinerServer, ServeConfig, steiner_tree_batch\n"
+        "from repro_torch.kernels.segmin.ops import segmin_bucketed\n"
+        "from repro_torch.obs import MetricsRegistry\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print(SteinerServer.__module__)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "repro_torch.serve.engine"
 
 
 def test_to_ell_of_port_matches_reference_for_solver_graph():
