@@ -7,15 +7,21 @@
 Phases (any failure raises and the script exits non-zero, printing no
 result):
 
-1. device and build: the card's name and power limit, torch's version, and
-   the seconds nvcc took to build every kernel source of the package;
+1. device and build: the card's name and power limit, torch's version, the
+   seconds nvcc took to build every kernel source of the package, and what
+   `nvcc -Xptxas -v` reported for each min-plus kernel (registers, shared
+   memory, spills);
 2. every kernel against its plain PyTorch version on the card, exact on all
    three outputs: both min-plus kernels over the sweep shapes of
-   tests/test_kernels.py in f32 and bf16, all-padding rows, a ragged R, K in
-   {4, 8, 16, 32, 48} and source blocks that do not divide N; their lane
-   axis with B in {1, 2, 8} and one lane entirely +inf; the segment min
-   over the sweep shapes, all padding, a tie-heavy case and one large
-   shape, (NB, EB, vb) = (8192, 2048, 256), through its public wrapper;
+   tests/test_kernels.py in f32 and bf16, all-padding rows (also with eight
+   lanes), a ragged R, K in {4, 8, 16, 32, 33, 48} with and without lanes,
+   rows too wide to stage (K in {1800, 2500}) with and without lanes,
+   mixed bf16/f32 inputs with and without lanes, a tie-heavy input
+   (integer weights, distances and labels) and source blocks that do not
+   divide N; their lane axis with B in {1, 2, 3, 4, 5, 8, 9, 16, 17} and
+   one lane entirely +inf; the segment min over the sweep shapes, all
+   padding, a tie-heavy case and one large shape, (NB, EB, vb) = (8192,
+   2048, 256), through its public wrapper;
 3. the fixed answers of the RMAT scale-10 workload (547.0 / 44 edges /
    10 rounds / 2638 relaxations / 45912 messages) through
    SteinerSolver(SolverConfig(backend="single", mode="pallas")) on the card,
@@ -32,7 +38,8 @@ result):
 6. full width, the repo's lvj_1k cell cut to RMAT: prepare, one cold and 3
    warm solves with their times and a stage breakdown; launches equal to
    the rounds; the kernel equal to the plain version at the converged state;
-   one more relaxation of the fixpoint improves nothing;
+   one more relaxation of the fixpoint improves nothing; a profiler pass
+   with the kernel's device time a launch inside the loop;
 7. serving at full width on phase 6's graph: the stream of
    benchmarks/perf_serve.py (pool 40, 200 queries, Zipf 1.1, seed 0,
    buckets 8/16/32, batch 8, flush every 8); warmup, QPS, fresh and cached
@@ -40,11 +47,13 @@ result):
    memory; the lane kernel launched once a round per batch; for the served
    batch of each bucket with the most distinct lanes, and for one batch of
    eight distinct pool keys, every distinct lane equal to a single solve of
-   its row bit for bit;
+   its row bit for bit; a profiler pass of one batch with the lane
+   kernel's device time a launch inside the loop;
 8. one JSON line with each kernel's launches on its path, its error and
    mismatches against the plain version, and its time beside its bound and
    the plain version's time (the lane kernel at the eight-key batch's
-   state, and at B = 1 against the single kernel);
+   state, at B = 1 against the single kernel, and at B = 1, 2, 4, 8 on the
+   first lanes of that state; the record packing alone);
 9. last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one card.
@@ -97,12 +106,18 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+MINPLUS_KERNELS = ("minplus_resident_kernel", "minplus_resident_lanes_kernel")
+
+
 def device_profile(fn, wall_s):
     """Device activity of one run of ``fn`` under torch.profiler.
 
     Sums the device-side events (kernels, copies, fills; one stream, so they
     do not overlap): ``busy_share`` is that time over ``wall_s``, an
     unprofiled run's host time, and ``top_device_ms`` groups it by kernel.
+    ``minplus_ms_per_launch`` is each resident min-plus kernel's device time
+    a launch inside the loop (L2 as the loop leaves it, not warmed by the
+    launch before), with ``minplus_launches`` beside it.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -112,16 +127,24 @@ def device_profile(fn, wall_s):
         fn()
         sync()
     by_name = {}  # kernel families: names cut to 70 characters
+    minplus = {}  # kernel -> (launches, us)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             key = e.name[:70]
-            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
+            us = e.time_range.elapsed_us()
+            by_name[key] = by_name.get(key, 0.0) + us
+            for k in MINPLUS_KERNELS:
+                if k + "<" in e.name or k + "(" in e.name:
+                    n, t = minplus.get(k, (0, 0.0))
+                    minplus[k] = (n + 1, t + us)
     total_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:8]
     return {
         "device_ms": total_us / 1e3,
         "busy_share": total_us / 1e6 / wall_s,
         "top_device_ms": {k: round(v / 1e3, 3) for k, v in top},
+        "minplus_ms_per_launch": {k: t / 1e3 / n for k, (n, t) in minplus.items()},
+        "minplus_launches": {k: n for k, (n, _) in minplus.items()},
     }
 
 
@@ -164,6 +187,33 @@ def ell_inputs(R, K, N, seed):
     dist = np.where(rng.random(N) < 0.5, rng.uniform(0, 50, N), np.inf).astype(np.float32)
     lab = rng.integers(0, 7, N).astype(np.int32)
     return nbr, wgt, dist, lab
+
+
+def tie_inputs(R, K, N, seed, B=None):
+    """The tie-heavy tiles of tests/_minplus_inputs.py (numpy): integer
+    weights 1..3, integer distances and labels 0..2."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(0, N, (R, K)).astype(np.int32)
+    wgt = rng.integers(1, 4, (R, K)).astype(np.float32)
+    wgt[rng.random((R, K)) < 0.25] = np.inf
+    shape = (N,) if B is None else (B, N)
+    dist = rng.integers(0, 3, shape).astype(np.float32)
+    dist[rng.random(shape) < 0.2] = np.inf
+    lab = rng.integers(0, 3, shape).astype(np.int32)
+    return nbr, wgt, dist, lab
+
+
+def lane_inputs(R, K, N, B, seed):
+    """ell_inputs with B lanes of dist/lab (B = None: one (N,) query)."""
+    import numpy as np
+
+    nbr, wgt, dist, lab = ell_inputs(R, K, N, seed=seed)
+    if B is None:
+        return nbr, wgt, dist, lab
+    lanes = [ell_inputs(R, K, N, seed=seed + 1 + b)[2:] for b in range(B)]
+    return nbr, wgt, np.stack([d for d, _ in lanes]), np.stack([lb for _, lb in lanes])
 
 
 def segmin_inputs(NB, EB, VB, seed, ties=False):
@@ -222,10 +272,40 @@ TIMED_STATS = ("qps", "latency_p50_ms", "latency_p99_ms", "fresh_p50_ms", "fresh
                "cached_p50_ms", "cached_p99_ms")
 
 
+def ptxas_lines(log_text):
+    """One line per min-plus kernel from nvcc's ``-Xptxas -v`` output: its
+    (demangled) name, registers and shared memory, and spills."""
+    import re
+    import shutil
+
+    entries, cur = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"entry": m.group(1), "used": "", "spill": ""}
+            entries.append(cur)
+        elif cur is not None and "spill" in line:
+            cur["spill"] = line.strip()
+        elif cur is not None and "Used" in line:
+            cur["used"] = line.split(":", 1)[1].strip()
+    entries = [e for e in entries if "minplus" in e["entry"]]
+    if entries and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(e["entry"] for e in entries),
+                               capture_output=True, text=True, timeout=60).stdout.split("\n")
+        for e, name in zip(entries, names):
+            name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+            e["entry"] = name.split("(")[0]
+    return [f"{e['entry']}: {e['used']}; {e['spill']}" for e in entries]
+
+
 def phase2_kernels(dev, tally):
     import torch
 
-    from repro_torch.kernels.minplus.minplus import minplus_blocked_call, minplus_call
+    from repro_torch.kernels.minplus.minplus import (
+        minplus_blocked_call,
+        minplus_call,
+        pack_records,
+    )
     from repro_torch.kernels.minplus.ref import minplus_torch
 
     def on(dtype, nbr, wgt, dist, lab):
@@ -270,19 +350,70 @@ def phase2_kernels(dev, tally):
         tally["minplus_call"].compare(minplus_call(*t), want, f"mixed {wd}/{dd}")
         tally["minplus_blocked_call"].compare(
             minplus_blocked_call(*t, src_block=300), want, f"mixed {wd}/{dd}")
-    # K sweep at a ragged R: narrower, equal to and wider than a warp
-    for K in (4, 8, 16, 32, 48):
+    # K sweep at a ragged R: narrower, equal to and wider than a warp; K = 33
+    # ends the resident kernels' bulk copies off 16 bytes
+    for K in (4, 8, 16, 32, 33, 48):
         t = on(torch.float32, *ell_inputs(1537, K, 3001, seed=K))
         want = minplus_torch(*t)
         tally["minplus_call"].compare(minplus_call(*t, block_rows=256), want, f"K={K}")
         tally["minplus_blocked_call"].compare(
             minplus_blocked_call(*t, block_rows=256, src_block=1000), want, f"K={K}")
+    for K in (4, 33, 48):
+        for B in (3, 8):
+            for dtype in (torch.float32, torch.bfloat16):
+                t = on(dtype, *lane_inputs(1537, K, 3001, B, seed=K))
+                tally["minplus_call (lanes)"].compare(
+                    minplus_call(*t, block_rows=256), minplus_torch(*t), f"K={K} B={B} {dtype}")
+    # rows too wide for two stages of eight in shared memory: read in place
+    for K in (1800, 2500):
+        for B in (None, 8):
+            for dtype in (torch.float32, torch.bfloat16):
+                t = on(dtype, *lane_inputs(37, K, 4001, B, seed=K))
+                key = "minplus_call" if B is None else "minplus_call (lanes)"
+                tally[key].compare(minplus_call(*t), minplus_torch(*t),
+                                   f"wide K={K} B={B} {dtype}")
+    # all-padding rows in eight lanes
+    R, K, N, B = 203, 8, 64, 8
+    empty8 = (torch.zeros((R, K), dtype=torch.int32, device=dev),
+              torch.full((R, K), float("inf"), device=dev),
+              torch.zeros((B, N), device=dev), torch.zeros((B, N), dtype=torch.int32, device=dev))
+    ident8 = (torch.full((B, R), float("inf"), device=dev),
+              torch.full((B, R), IMAX, dtype=torch.int32, device=dev),
+              torch.full((B, R), IMAX, dtype=torch.int32, device=dev))
+    tally["minplus_call (lanes)"].compare(minplus_call(*empty8), ident8, "empty rows, 8 lanes")
+    # mixed input types with lanes
+    for B in (2, 8):
+        nbr, wgt, dist, lab = lane_inputs(500, 32, 2000, B, seed=9)
+        for wd, dd in ((torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)):
+            t = (torch.from_numpy(nbr).to(dev), torch.from_numpy(wgt).to(dev, wd),
+                 torch.from_numpy(dist).to(dev, dd), torch.from_numpy(lab).to(dev))
+            tally["minplus_call (lanes)"].compare(
+                minplus_call(*t), minplus_torch(*t), f"mixed {wd}/{dd} B={B}")
+    # the record table the resident kernels gather from: the card's pack
+    # equals the plain version's (checked here, its time is in the kernels')
+    for B in (None, 1, 2, 3, 8, 9, 17):
+        for dtype in (torch.float32, torch.bfloat16):
+            _, _, dist, lab = lane_inputs(16, 4, 3001, B, seed=11)
+            d, lb = torch.from_numpy(dist).to(dtype), torch.from_numpy(lab)
+            got = pack_records(d.to(dev), lb.to(dev)).cpu()
+            if not torch.equal(got, pack_records(d, lb)):
+                raise AssertionError(f"pack_records B={B} {dtype}: card and plain differ")
+    # tie-heavy: most minima decided on the label or the neighbor id
+    for B in (None, 1, 2, 5, 8):
+        for dtype in (torch.float32, torch.bfloat16):
+            t = on(dtype, *tie_inputs(1000, 32, 50, seed=3, B=B))
+            want = minplus_torch(*t)
+            key = "minplus_call" if B is None else "minplus_call (lanes)"
+            tally[key].compare(minplus_call(*t, block_rows=64), want, f"ties B={B} {dtype}")
+            tally["minplus_blocked_call"].compare(
+                minplus_blocked_call(*t, src_block=16), want, f"ties B={B} {dtype}")
 
 
 def phase2_lanes(dev, tally):
     """The lane axis of both min-plus kernels: (B, N) distances, one launch
     for all lanes, against the plain version; the last lane (or, for B = 1,
-    a second case) is entirely unreached."""
+    a second case) is entirely unreached.  Odd B pads the resident kernel's
+    record stride."""
     import numpy as np
     import torch
 
@@ -293,7 +424,7 @@ def phase2_lanes(dev, tally):
     for dtype in (torch.float32, torch.bfloat16):
         for R, K, N, SB in shapes:
             nbr, wgt, _, _ = ell_inputs(R, K, N, seed=R)
-            for B in (1, 2, 8):
+            for B in (1, 2, 3, 4, 5, 8, 9, 16, 17):
                 lanes = [ell_inputs(R, K, N, seed=R + 1 + b)[2:] for b in range(B)]
                 dist = np.stack([d for d, _ in lanes])
                 lab = np.stack([lb for _, lb in lanes])
@@ -552,14 +683,16 @@ def phase6_full_width(dev, scale, n_seeds, tally):
         f"{rec['host_rmat_s']:.1f} s, prepare {rec['prepare_s']:.3f} s")
 
     kmod.minplus_call.launches = kmod.minplus_blocked_call.launches = 0
+    kmod.pack_records.launches = 0
     solves = []
     for i in range(4):
         out, secs = timed(h.solve, seeds)
         solves.append((out, secs))
     launches = (kmod.minplus_call.launches, kmod.minplus_blocked_call.launches)
     iters = [o.telemetry.iterations for o, _ in solves]
-    if launches != (sum(iters), 0):
-        raise AssertionError(f"launches {launches} != rounds {iters}")
+    if launches != (sum(iters), 0) or kmod.pack_records.launches != sum(iters):
+        raise AssertionError(f"launches {launches} (record packs "
+                             f"{kmod.pack_records.launches}) != rounds {iters}")
     first = solves[0][0]
     for o, _ in solves[1:]:
         if (o.total_distance, o.num_edges, o.telemetry.iterations) != (
@@ -608,6 +741,8 @@ def phase6_full_width(dev, scale, n_seeds, tally):
     rec.update(device_profile(lambda: h.solve(seeds), min(rec["warm_solve_s"])))
     log("phase 6: device busy {busy_share:.3f} of a warm solve; top device time (ms): "
         "{top}".format(busy_share=rec["busy_share"], top=json.dumps(rec["top_device_ms"])))
+    log(f"phase 6: in-loop device ms a launch {json.dumps(rec['minplus_ms_per_launch'])} "
+        f"over {json.dumps(rec['minplus_launches'])} launches")
 
     # the kernel at the converged state: equal to the plain version, and the
     # fixpoint is stable under one more relaxation
@@ -666,11 +801,12 @@ def phase7_serving(dev, h):
 
     server._handle.solve = recorded
     kmod.minplus_call.launches = kmod.minplus_call.lane_launches = 0
+    kmod.pack_records.launches = 0
     results, stream_s = serve_stream(server, queries, flush_every)
     lane_launches = kmod.minplus_call.lane_launches
     single_launches = kmod.minplus_call.launches - lane_launches
     rounds = sum(b["rounds"] for b in batches)
-    if lane_launches != rounds or single_launches:
+    if lane_launches != rounds or single_launches or kmod.pack_records.launches != rounds:
         raise AssertionError(f"lane kernel launched {lane_launches} times ({single_launches} "
                              f"single) for {rounds} rounds in {len(batches)} batches")
     st = server.stats()
@@ -751,6 +887,8 @@ def phase7_serving(dev, h):
         f"of which the batched Voronoi loop {rec['breakdown_voronoi_s']:.3f} s; device "
         f"busy {prof['busy_share']:.3f}; top device time (ms): "
         f"{json.dumps(prof['top_device_ms'])}")
+    log(f"phase 7: in-loop device ms a launch {json.dumps(prof['minplus_ms_per_launch'])} "
+        f"over {json.dumps(prof['minplus_launches'])} launches")
     return rec, lane_launches, out8.raw.state
 
 
@@ -769,8 +907,8 @@ def kernel_times(dev, ell, st, blocked_in, lanes_st, seg_in, tally):
     R, K = ell.nbr.shape
     N = st.dist.shape[0]
     args = (ell.nbr, ell.wgt, st.dist, st.lab)
-    # the lane kernel at B = 1 on the same state: equal to the single kernel,
-    # and its time says whether the single kernel is still worth keeping
+    # the lane entry at B = 1 on the same state (it launches the single
+    # kernel's body): equal to the single kernel, and as fast
     args1 = (ell.nbr, ell.wgt, st.dist[None], st.lab[None])
     tally["minplus_call (lanes)"].compare(
         kmod.minplus_call(*args1), tuple(x[None] for x in kmod.minplus_call(*args)),
@@ -778,7 +916,8 @@ def kernel_times(dev, ell, st, blocked_in, lanes_st, seg_in, tally):
     res = {"minplus_call": dict(
         shape=[R, K, N], ms=event_ms(lambda: kmod.minplus_call(*args), 20),
         plain_ms=event_ms(lambda: minplus_torch(*args), 3), bound_ms=bound_ms(R, K, N),
-        lanes_b1_ms=event_ms(lambda: kmod.minplus_call(*args1), 20))}
+        lanes_b1_ms=event_ms(lambda: kmod.minplus_call(*args1), 20),
+        pack_ms=event_ms(lambda: kmod.pack_records(st.dist, st.lab), 20))}
     h16, st16 = blocked_in
     e16 = h16.artifact("ell")
     SB = 4096
@@ -815,7 +954,14 @@ def kernel_times(dev, ell, st, blocked_in, lanes_st, seg_in, tally):
         single_lane_launches_ms=event_ms(lambda: [
             kmod.minplus_call(ell.nbr, ell.wgt, lanes_st.dist[b], lanes_st.lab[b])
             for b in range(B)], 5),
-        bound_ms=(R * K * 8 + B * (N * 8 + R * 12)) / HBM_BYTES_PER_S * 1e3)
+        bound_ms=(R * K * 8 + B * (N * 8 + R * 12)) / HBM_BYTES_PER_S * 1e3,
+        pack_ms=event_ms(lambda: kmod.pack_records(lanes_st.dist, lanes_st.lab), 20))
+    # the lane kernel on the first b lanes of the same state, b = 1, 2, 4, 8
+    res["minplus_call (lanes)"]["b_sweep"] = {
+        b: dict(ms=event_ms(lambda: kmod.minplus_call(
+            ell.nbr, ell.wgt, lanes_st.dist[:b], lanes_st.lab[:b]), 10),
+            bound_ms=(R * K * 8 + b * (N * 8 + R * 12)) / HBM_BYTES_PER_S * 1e3)
+        for b in (1, 2, 4, 8) if b <= B}
 
     NB, EB = seg_in[0].shape
     VB = SEGMIN_PATH_SHAPE[2]
@@ -854,6 +1000,9 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     log(f"phase 1: {smi}; torch {torch.__version__} (CUDA {torch.version.cuda}); "
         f"kernel build {build_s:.1f} s")
+    ptxas = ptxas_lines(_build.build_log("minplus"))
+    for line in ptxas or ["no nvcc log (the library was built before this run)"]:
+        log(f"phase 1: ptxas {line}")
 
     names = ("minplus_call", "minplus_call (lanes)", "minplus_blocked_call",
              "segmin_bucketed_call")
@@ -921,7 +1070,7 @@ def main(argv=None) -> int:
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
-            {"device": smi, "torch": torch.__version__, "build_s": build_s,
+            {"device": smi, "torch": torch.__version__, "build_s": build_s, "ptxas": ptxas,
              "full_width": rec, "serving": serve_rec, "scale16_lane_launches": lanes16,
              "kernel_times": times, "kernels": kernels, "seconds": total_s}, indent=1))
     print(smi)

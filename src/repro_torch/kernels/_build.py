@@ -4,13 +4,16 @@ Each kernel family has one source under ``<family>/csrc/`` with a plain C
 interface (no PyTorch headers), compiled for Hopper into a shared library:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/lib<family>-<hash>.so <family>/csrc/<family>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/lib<family>-<hash>.so <family>/csrc/<family>.cu
 
 The library name carries a hash of the source and the flags, so an edited
 source is rebuilt and never loaded stale.  Builds go to ``kernels/build/``
 beside this file (listed in ``.gitignore``) at first use; :func:`build_all`
 starts one nvcc per source at once.  No ``--use_fast_math``: the kernels'
 ``d + w`` must round exactly like the plain version's.
+
+nvcc runs with ``-Xptxas -v``; what it reports (registers, shared memory and
+spills of each kernel) is kept beside the library, :func:`build_log`.
 
 Every C entry point takes its pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch; :func:`check` raises on a
@@ -34,7 +37,7 @@ SOURCES = {
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _libs: "dict[str, ctypes.CDLL]" = {}
@@ -83,6 +86,7 @@ def _finish(family: str, job) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {family} ({proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
 
 
@@ -92,6 +96,13 @@ def build_all() -> None:
     jobs = {fam: _start(fam) for fam in SOURCES}
     for fam, job in jobs.items():
         _finish(fam, job)
+
+
+def build_log(family: str) -> str:
+    """What nvcc printed when it built the current library of ``family``
+    ("" if it was not built from this checkout)."""
+    log = _lib_path(family).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def library(family: str) -> ctypes.CDLL:

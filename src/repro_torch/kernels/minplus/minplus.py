@@ -7,13 +7,19 @@ wrapper counts its launches in ``<wrapper>.launches``.
 
 ``dist`` and ``lab`` may carry a leading (B,) lane axis, one row per query
 of a batch over the same graph (what ``jax.vmap`` of the Pallas calls
-computes); the outputs are then (B, R).  An (N,) input launches the
-single-query kernel as before.  ``<wrapper>.lane_launches`` counts the
-launches that had a lane axis.
+computes); the outputs are then (B, R).  An (N,) or a (1, N) input
+launches the single-query kernel (outputs (R,) or (1, R)).
+``<wrapper>.lane_launches`` counts the launches that had a lane axis.
 
-``block_rows`` is the number of ELL rows one thread block owns; it never
-changes results.  ``interpret`` is accepted for signature parity with the
-Pallas wrappers and ignored: there is no interpreter for a CUDA kernel.
+The resident kernels gather one record a live slot: :func:`pack_records`
+builds that table from ``dist`` and ``lab`` on every call (a kernel of its
+own on the card), and the resident kernel's time includes it.
+
+``block_rows`` is the size of one thread block's tile of work: ELL rows for
+an (N,) input, (row, lane pair) items with a lane axis (see
+:func:`minplus_call`); it never changes results.  ``interpret`` is accepted
+for signature parity with the Pallas wrappers and ignored: there is no
+interpreter for a CUDA kernel.
 """
 
 from __future__ import annotations
@@ -30,13 +36,12 @@ _MAX_SMEM = 232448  # bytes of shared memory one block can use on Hopper
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    "minplus_resident": [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P,
-    ],
     "minplus_resident_lanes": [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+        ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+    ],
+    "minplus_pack_records": [
+        ctypes.c_int, ctypes.c_int, _P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P,
     ],
     "minplus_blocked": [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
@@ -45,6 +50,8 @@ _ARGTYPES = {
     ],
 }
 _MAX_LANES = 65535  # gridDim.y of the blocked kernel
+_INF_BITS = 0x7F800000  # +inf as f32 bits
+_IMAX = torch.iinfo(torch.int32).max
 
 
 def _entry(name: str):
@@ -87,8 +94,61 @@ def _check_inputs(nbr, wgt, dist, lab, block_rows):
         raise ValueError(f"unsupported device {dev}: the kernels run on cuda")
 
 
-def _launch(name, nbr, wgt, dist, lab, *extra, lanes=None):
-    """Launches ``name`` with (R,) outputs, or (lanes, R) ones."""
+def record_stride(dist: torch.Tensor) -> int:
+    """Records a vertex holds in :func:`pack_records`' table: 1 for (N,) and
+    (1, N) distances, else B rounded up to an even count (the kernel loads
+    two lanes as one 16-byte vector)."""
+    B = 1 if dist.dim() == 1 else dist.shape[0]
+    return 1 if B == 1 else B + B % 2
+
+
+def pack_records(dist: torch.Tensor, lab: torch.Tensor) -> torch.Tensor:
+    """The resident kernels' gather table: one 8-byte record a vertex and a
+    lane, ``(dist as f32 bits, lab)``, lane-minor.
+
+    ``dist`` (N,) or (B, N) f32/bf16 (bf16 is upcast to f32, exactly, as
+    :func:`minplus_torch` does before its add), ``lab`` int32 of the same
+    shape, both contiguous.  Returns (N, stride, 2) int32 with ``stride`` =
+    :func:`record_stride`; a padding lane (odd B) holds (+inf, IMAX).  A
+    CUDA tensor launches ``pack_records_kernel`` (counted in
+    ``pack_records.launches``); a CPU tensor takes the plain version below,
+    two strided copies and a fill for odd B.
+    """
+    d = dist if dist.dim() == 2 else dist[None]
+    l = lab if lab.dim() == 2 else lab[None]
+    B, N = d.shape
+    stride = record_stride(dist)
+    rec = torch.empty((N, stride, 2), dtype=torch.int32, device=dist.device)
+    if dist.device.type == "cuda":
+        if dist.dtype not in _DTYPE_CODES or lab.dtype != torch.int32 or lab.shape != dist.shape:
+            raise ValueError(f"pack_records takes f32/bf16 dist and int32 lab of one shape, got "
+                             f"{dist.dtype}{tuple(dist.shape)} and {lab.dtype}{tuple(lab.shape)}")
+        if not (dist.is_contiguous() and lab.is_contiguous()):
+            raise ValueError("dist and lab must be contiguous")
+        lib, fn = _entry("minplus_pack_records")
+        dev = dist.device
+        rc = fn(dev.index if dev.index is not None else torch.cuda.current_device(),
+                _DTYPE_CODES[dist.dtype], dist.data_ptr(), lab.data_ptr(), rec.data_ptr(),
+                N, B, stride, torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            msg = lib.minplus_error_string(rc).decode()
+            raise RuntimeError(f"minplus_pack_records launch failed: CUDA error {rc} ({msg})")
+        pack_records.launches += N > 0
+        return rec
+    rec.view(torch.float32)[:, :B, 0].copy_(d.t())
+    rec[:, :B, 1].copy_(l.t())
+    if stride > B:
+        rec[:, B:, 0] = _INF_BITS
+        rec[:, B:, 1] = _IMAX
+    return rec
+
+
+pack_records.launches = 0
+
+
+def _launch(name, nbr, wgt, inputs, dtype_codes, *extra, lanes=None):
+    """Launches ``name`` on ``inputs`` (tensors after nbr and wgt) with (R,)
+    outputs, or (lanes, R) ones."""
     R, K = nbr.shape
     dev = nbr.device
     shape = (R,) if lanes is None else (lanes, R)
@@ -101,8 +161,7 @@ def _launch(name, nbr, wgt, dist, lab, *extra, lanes=None):
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(
         dev.index if dev.index is not None else torch.cuda.current_device(),
-        _DTYPE_CODES[dist.dtype], _DTYPE_CODES[wgt.dtype],
-        nbr.data_ptr(), wgt.data_ptr(), dist.data_ptr(), lab.data_ptr(),
+        *dtype_codes, nbr.data_ptr(), wgt.data_ptr(), *(t.data_ptr() for t in inputs),
         m.data_ptr(), ml.data_ptr(), ms.data_ptr(), R, K, *extra, stream,
     )
     if rc != 0:
@@ -124,10 +183,13 @@ def minplus_call(
 
     Args:
       nbr: (R, K) int32 neighbor ids (padding: any id with wgt=+inf).
-      wgt: (R, K) f32/bf16 weights (+inf padding).
+      wgt: (R, K) f32/bf16 weights (+inf padding).  On the card, nbr and
+        wgt must start on 16 bytes, as a fresh allocation does.
       dist: (N,) or (B, N) f32/bf16 distances (no NaN, no -inf).
       lab: int32 labels, the shape of ``dist``.
-      block_rows: rows per thread block; any R is accepted.
+      block_rows: work items of one thread block's tile: ELL rows for an
+        (N,) input, (row, lane pair) items with a lane axis; rounded to a
+        multiple of 8 rows; any R and any K are accepted.
       interpret: ignored (no interpreter for a CUDA kernel).
 
     Returns:
@@ -137,19 +199,20 @@ def minplus_call(
     _check_inputs(nbr, wgt, dist, lab, block_rows)
     if nbr.device.type == "cpu":
         return minplus_torch(nbr, wgt, dist, lab)
+    for name, t in (("nbr", nbr), ("wgt", wgt)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes (the kernel's bulk copies read "
+                             "it); pass a fresh tensor, not a view into one")
     launched = nbr.shape[0] > 0
-    if dist.dim() == 1:
-        out = _launch("minplus_resident", nbr, wgt, dist, lab, block_rows)
-    else:
-        # the lane kernel gathers (N, B) lane-minor copies: the B values of
-        # one vertex share a 32-byte sector (one device-memory read at B = 8)
-        B = dist.shape[0]
-        out = _launch(
-            "minplus_resident_lanes", nbr, wgt, dist.t().contiguous(),
-            lab.t().contiguous(), B, block_rows, lanes=B,
-        )
-        minplus_call.lane_launches += launched
+    rec = pack_records(dist, lab)
+    lanes = None if dist.dim() == 1 else dist.shape[0]
+    out = _launch(
+        "minplus_resident_lanes", nbr, wgt, (rec,), (_DTYPE_CODES[wgt.dtype],), lanes or 1,
+        record_stride(dist), block_rows, lanes=lanes,
+    )
     minplus_call.launches += launched
+    if lanes is not None:
+        minplus_call.lane_launches += launched
     return out
 
 
@@ -189,9 +252,10 @@ def minplus_blocked_call(
         )
     B = dist.shape[0] if dist.dim() == 2 else 1
     launched = nbr.shape[0] > 0
+    codes = (_DTYPE_CODES[dist.dtype], _DTYPE_CODES[wgt.dtype])
     out = _launch(
-        "minplus_blocked", nbr, wgt, dist, lab, dist.shape[-1], src_block, B, block_rows,
-        lanes=B if dist.dim() == 2 else None,
+        "minplus_blocked", nbr, wgt, (dist, lab), codes, dist.shape[-1], src_block, B,
+        block_rows, lanes=B if dist.dim() == 2 else None,
     )
     minplus_blocked_call.launches += launched
     if dist.dim() == 2:

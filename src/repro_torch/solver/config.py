@@ -40,7 +40,9 @@ class SolverConfig:
       ell_width: ELL row width of the frontier/pallas view.
       ell_pad_rows: ELL row padding for graph-store inputs.
       frontier_size: top-K rows a round (frontier schedules).
-      block_rows: ELL rows per thread block (mode="pallas").
+      block_rows: work items of one thread block's tile (mode="pallas"):
+        ELL rows for one query, (row, lane pair) items with a lane axis;
+        with ``src_block``, the rows (one thread each) of a thread block.
       src_block: stage dist/lab through shared memory in (src_block,)
         slices (mode="pallas"); None gathers them straight from memory.
       interpret: Pallas interpreter override of the reference; accepted and

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from _minplus_inputs import ell_inputs
+from _minplus_inputs import ell_inputs, lane_inputs, tie_inputs
 from _segmin_inputs import segmin_inputs
 from repro_torch.core.graph import from_edges
 from repro_torch.data.graphs import rmat_edges, select_seeds
@@ -103,17 +103,15 @@ def test_scale10_fixed_answers_on_card(cuda, src_block):
     assert not bool(upd.any())
 
 
-@pytest.mark.parametrize("B", [1, 2, 8, 9])
+@pytest.mark.parametrize("B", [1, 2, 3, 4, 5, 8, 9, 16, 17])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lane_kernels_match_plain(cuda, B, dtype):
     """(B, N) distances: one launch for all lanes, equal to the plain
     version; the last lane is entirely unreached (+inf)."""
     R, K, N = 777, 32, 3000
-    nbr, wgt, _, _ = ell_inputs(R, K, N, seed=B)
-    lanes = [ell_inputs(R, K, N, seed=100 + b)[2:] for b in range(B)]
-    dist = np.stack([d for d, _ in lanes])
+    nbr, wgt, dist, lab = lane_inputs(R, K, N, B, seed=B)
     dist[-1] = np.inf
-    t = _on(cuda, dtype, nbr, wgt, dist, np.stack([lb for _, lb in lanes]))
+    t = _on(cuda, dtype, nbr, wgt, dist, lab)
     want = minplus_torch(*t)
     n0 = (tmp.minplus_call.launches, tmp.minplus_call.lane_launches)
     _assert_triples_equal(want, tmp.minplus_call(*t, block_rows=64))
@@ -122,6 +120,87 @@ def test_lane_kernels_match_plain(cuda, B, dtype):
     for sb in (500, N):
         _assert_triples_equal(
             want, tmp.minplus_blocked_call(*t, block_rows=128, src_block=sb))
+
+
+@pytest.mark.parametrize("K", [4, 33, 48])
+@pytest.mark.parametrize("B", [None, 3, 8])
+@pytest.mark.parametrize("block_rows", [1, 256])
+def test_resident_kernels_k_sweep_ragged(cuda, K, B, block_rows):
+    """K not a multiple of 4 (bulk copies end off 16 bytes) and a ragged R
+    (the last tile is short), with and without a lane axis."""
+    for dtype in (torch.float32, torch.bfloat16):
+        t = _on(cuda, dtype, *lane_inputs(1537, K, 3001, B, seed=K))
+        _assert_triples_equal(minplus_torch(*t), tmp.minplus_call(*t, block_rows=block_rows))
+
+
+@pytest.mark.parametrize("K", [1800, 2500])
+@pytest.mark.parametrize("B", [None, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resident_kernels_wide_rows(cuda, K, B, dtype):
+    """Rows too wide for two stages of eight in shared memory (K = 2500; K =
+    1800 in f32 is just under that) are read in place, still exact."""
+    t = _on(cuda, dtype, *lane_inputs(37, K, 4001, B, seed=K))
+    _assert_triples_equal(minplus_torch(*t), tmp.minplus_call(*t))
+
+
+def test_resident_kernels_reject_unaligned_views(cuda):
+    """A row slice that does not start on 16 bytes raises, it is not copied."""
+    nbr, wgt, dist, lab = _on(cuda, torch.float32, *ell_inputs(64, 3, 32, seed=0))
+    with pytest.raises(ValueError, match="nbr must start on 16 bytes"):
+        tmp.minplus_call(nbr[1:], wgt[1:].clone(), dist, lab)
+    with pytest.raises(ValueError, match="wgt must start on 16 bytes"):
+        tmp.minplus_call(nbr[1:].clone(), wgt[1:], dist, lab)
+
+
+@pytest.mark.parametrize("B", [None, 1, 2, 3, 8, 9, 17])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_records_kernel_matches_plain(cuda, B, dtype):
+    """The card's record table equals the plain version's, padding lanes
+    and +inf distances included."""
+    _, _, dist, lab = lane_inputs(16, 4, 3001, B, seed=11)
+    d, lb = torch.from_numpy(dist).to(dtype), torch.from_numpy(lab)
+    n0 = tmp.pack_records.launches
+    got = tmp.pack_records(d.to(cuda), lb.to(cuda))
+    assert tmp.pack_records.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), tmp.pack_records(d, lb))
+
+
+def test_lane_kernel_all_padding_rows(cuda):
+    """Rows whose every slot is +inf padding give (+inf, IMAX, IMAX) in all
+    eight lanes."""
+    R, K, N, B = 203, 8, 64, 8
+    m, ml, ms = tmp.minplus_call(
+        torch.zeros((R, K), dtype=torch.int32, device=cuda),
+        torch.full((R, K), float("inf"), device=cuda),
+        torch.zeros((B, N), device=cuda),
+        torch.zeros((B, N), dtype=torch.int32, device=cuda),
+    )
+    torch.cuda.synchronize()
+    assert m.shape == (B, R) and torch.isinf(m).all()
+    assert (ml == IMAX).all() and (ms == IMAX).all()
+
+
+@pytest.mark.parametrize("B", [None, 2, 8])
+@pytest.mark.parametrize("dtypes", [(torch.bfloat16, torch.float32),
+                                    (torch.float32, torch.bfloat16)])
+def test_resident_kernels_mixed_types(cuda, B, dtypes):
+    """bf16 weights over f32 distances, and f32 weights over bf16 ones."""
+    wd, dd = dtypes
+    nbr, wgt, dist, lab = lane_inputs(500, 32, 2000, B, seed=9)
+    t = (torch.from_numpy(nbr).to(cuda), torch.from_numpy(wgt).to(cuda, wd),
+         torch.from_numpy(dist).to(cuda, dd), torch.from_numpy(lab).to(cuda))
+    _assert_triples_equal(minplus_torch(*t), tmp.minplus_call(*t))
+
+
+@pytest.mark.parametrize("B", [None, 1, 2, 5, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resident_kernels_tie_heavy(cuda, B, dtype):
+    """Integer weights, distances and labels: most minima are decided on
+    the label or the neighbor id."""
+    t = _on(cuda, dtype, *tie_inputs(1000, 32, 50, seed=3, B=B))
+    _assert_triples_equal(minplus_torch(*t), tmp.minplus_call(*t, block_rows=64))
+    _assert_triples_equal(minplus_torch(*t), tmp.minplus_blocked_call(*t, src_block=16))
 
 
 @pytest.mark.parametrize("shape", [(1, 256, 32), (4, 512, 64), (2, 1000, 128),

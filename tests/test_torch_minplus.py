@@ -102,6 +102,69 @@ def test_wrappers_reject_bad_inputs():
         tmp.minplus_blocked_call(nbr, wgt, dist, lab, src_block=0)
 
 
+def _records_unpacked(rec, lanes):
+    """(dist f32, lab) as (lanes, N), unpacked from a record table."""
+    d = rec[..., 0].contiguous().view(torch.float32)[:, :lanes].t()
+    return d, rec[..., 1][:, :lanes].t()
+
+
+@pytest.mark.parametrize("B", [None, 1, 2, 3, 8, 9])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_pack_records_roundtrip(B, dtype):
+    """The resident kernels' records, unpacked in plain torch, are the
+    inputs (bf16 upcast to f32), lane-minor with an even stride for B > 1."""
+    N = 300
+    rng = np.random.default_rng(7 if B is None else B)
+    shape = (N,) if B is None else (B, N)
+    dist = np.where(rng.random(shape) < 0.3, np.inf, rng.uniform(0, 50, shape))
+    lab = rng.integers(0, 10**6, shape).astype(np.int32)
+    d = torch.from_numpy(dist.astype(np.float32)).to(_TDTYPES[dtype])
+    lab_t = torch.from_numpy(lab)
+    rec = tmp.pack_records(d, lab_t)
+    lanes = 1 if B is None else B
+    stride = tmp.record_stride(d)
+    assert stride == (1 if lanes == 1 else lanes + lanes % 2)
+    assert rec.dtype == torch.int32 and rec.is_contiguous()
+    assert tuple(rec.shape) == (N, stride, 2)
+    got_d, got_l = _records_unpacked(rec, lanes)
+    want_d = d.to(torch.float32).reshape(lanes, N)
+    assert torch.equal(got_d.view(torch.int32), want_d.view(torch.int32))
+    assert torch.equal(got_l, lab_t.reshape(lanes, N))
+    # vertex u, lane b sits at flat record u * stride + b
+    flat = rec.reshape(-1, 2)
+    u, b = N - 1, lanes - 1
+    assert int(flat[u * stride + b, 1]) == int(lab_t.reshape(lanes, N)[b, u])
+
+
+@pytest.mark.parametrize("B", [3, 5, 17])
+def test_pack_records_pads_odd_lanes(B):
+    """An odd B pads each vertex's records to B + 1 lanes with (+inf, IMAX),
+    so every vertex starts on 16 bytes."""
+    N = 40
+    d = torch.arange(B * N, dtype=torch.float32).reshape(B, N)
+    lab = torch.arange(B * N, dtype=torch.int32).reshape(B, N)
+    rec = tmp.pack_records(d, lab)
+    assert tuple(rec.shape) == (N, B + 1, 2)
+    pad = rec[:, B]
+    assert torch.isinf(pad[:, 0].contiguous().view(torch.float32)).all()
+    assert (pad[:, 1] == IMAX).all()
+    got_d, got_l = _records_unpacked(rec, B)
+    assert torch.equal(got_d, d) and torch.equal(got_l, lab)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_pack_records_keeps_inf(dtype):
+    """Unreached vertices (+inf) keep the f32 +inf bits in their records."""
+    d = torch.full((2, 16), float("inf")).to(_TDTYPES[dtype])
+    d[1, ::2] = 0.0
+    rec = tmp.pack_records(d, torch.zeros((2, 16), dtype=torch.int32))
+    bits = rec[..., 0]
+    assert (bits[:, 0] == 0x7F800000).all()
+    assert (bits[::2, 1] == 0).all() and (bits[1::2, 1] == 0x7F800000).all()
+    one = tmp.pack_records(d[0], torch.zeros(16, dtype=torch.int32))
+    assert tuple(one.shape) == (16, 1, 2) and (one[:, 0, 0] == 0x7F800000).all()
+
+
 def test_cap_clamps_to_int32():
     big_default = 4 * 2**30 + 64
     assert tops._cap(None, big_default) == 2**31 - 2 == int(jops._cap(None, big_default))
