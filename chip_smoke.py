@@ -19,7 +19,9 @@ result):
    mixed bf16/f32 inputs with and without lanes, a tie-heavy input
    (integer weights, distances and labels) and source blocks that do not
    divide N; their lane axis with B in {1, 2, 3, 4, 5, 8, 9, 16, 17} and
-   one lane entirely +inf; the segment min over the sweep shapes, all
+   one lane entirely +inf; the blocked kernel also over layouts of one
+   source block a slice (one launch a slice), against the plain fold over
+   the same layout as well; the segment min over the sweep shapes, all
    padding, a tie-heavy case and one large shape, (NB, EB, vb) = (8192,
    2048, 256), through its public wrapper;
 3. the fixed answers of the RMAT scale-10 workload (547.0 / 44 edges /
@@ -29,12 +31,14 @@ result):
 4. RMAT scale 16, 64 seeds: the solve on the card (kernels) against the same
    solve on the CPU (plain path), bit for bit on the Voronoi state, the pair
    tables, the MST, the tree, the counters and the per-round telemetry,
-   resident and with src_block=4096 (the blocked kernel's path);
+   resident and with src_block=4096 (the blocked kernel's path, one
+   launch a round and slice);
 5. RMAT scale 16, serving: one Zipf query stream through
    SteinerServer(g, ServeConfig(mode="pallas", buckets=(8, 16, 32),
    max_batch=8)) on the card and on the CPU, with identical results and
    non-latency counters; then one (8, 16) seed batch through the batch
-   backend with src_block=4096, card vs CPU bit for bit;
+   backend with src_block=4096, card vs CPU bit for bit (blocked lane
+   launches = rounds x lane groups x slices);
 6. full width, the repo's lvj_1k cell cut to RMAT: prepare, one cold and 3
    warm solves with their times and a stage breakdown; launches equal to
    the rounds; the kernel equal to the plain version at the converged state;
@@ -49,12 +53,25 @@ result):
    eight distinct pool keys, every distinct lane equal to a single solve of
    its row bit for bit; a profiler pass of one batch with the lane
    kernel's device time a launch inside the loop;
-8. one JSON line with each kernel's launches on its path, its error and
+8. the source-blocked path at full width: phase 6's graph and seeds through
+   SolverConfig(..., src_block=4096): prepare (the layout built once), one
+   cold and two warm solves, each bit-identical to phase 6's resident solve
+   (state, MST, tree, counters, telemetry); blocked launches = rounds x
+   slices; a warm solve and its Voronoi stage of both paths in turns
+   (resident, blocked, blocked, resident), and a profiler pass
+   of the blocked one with the kernel's device time a launch inside the
+   loop; then phase 7's batch of eight distinct keys through the
+   batch backend with src_block=4096, bit-identical to the resident batch;
+9. one JSON line with each kernel's launches on its path, its error and
    mismatches against the plain version, and its time beside its bound and
    the plain version's time (the lane kernel at the eight-key batch's
    state, at B = 1 against the single kernel, and at B = 1, 2, 4, 8 on the
-   first lanes of that state; the record packing alone);
-9. last line: {"ok": true, "device": {...}}.
+   first lanes of that state; the record packing alone; the blocked kernel
+   at full width, single and at the eight-key state, beside the resident
+   kernel on the same inputs, the layout's build and its plain fold, over
+   a few slice budgets and lane groups (the choice of the package's
+   constants), and at its scale-16 shape);
+10. last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one card.
 """
@@ -106,7 +123,8 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-MINPLUS_KERNELS = ("minplus_resident_kernel", "minplus_resident_lanes_kernel")
+MINPLUS_KERNELS = ("minplus_resident_kernel", "minplus_resident_lanes_kernel",
+                   "minplus_blocked_kernel", "minplus_blocked_lanes_kernel")
 
 
 def device_profile(fn, wall_s):
@@ -115,7 +133,7 @@ def device_profile(fn, wall_s):
     Sums the device-side events (kernels, copies, fills; one stream, so they
     do not overlap): ``busy_share`` is that time over ``wall_s``, an
     unprofiled run's host time, and ``top_device_ms`` groups it by kernel.
-    ``minplus_ms_per_launch`` is each resident min-plus kernel's device time
+    ``minplus_ms_per_launch`` is each min-plus kernel's device time
     a launch inside the loop (L2 as the loop leaves it, not warmed by the
     launch before), with ``minplus_launches`` beside it.
     """
@@ -298,6 +316,43 @@ def ptxas_lines(log_text):
     return [f"{e['entry']}: {e['used']}; {e['spill']}" for e in entries]
 
 
+def blocked_key(dist):
+    return "minplus_blocked_call (lanes)" if dist.dim() == 2 else "minplus_blocked_call"
+
+
+def check_blocked(tally, t, SB, what, block_rows=256):
+    """The blocked kernel on ``t`` against the plain version: through the
+    layout its wrapper builds, and over a layout of one source block a
+    slice (one launch a lane group and slice), which the plain fold over
+    that layout must match as well."""
+    from repro_torch.kernels.minplus import minplus as kmod
+    from repro_torch.kernels.minplus.ref import minplus_blocked_torch, minplus_torch
+
+    nbr, wgt, dist, lab = t
+    want = minplus_torch(*t)
+    key = blocked_key(dist)
+    tally[key].compare(kmod.minplus_blocked_call(*t, block_rows=block_rows, src_block=SB),
+                       want, what)
+    B = dist.shape[0] if dist.dim() == 2 else 1
+    layout = kmod.blocked_layout(nbr, wgt, dist.shape[-1], SB, B > 1, budget=8 * SB)
+    n0 = kmod.minplus_blocked_call.launches
+    tally[key].compare(kmod.minplus_blocked_call(*t, block_rows=block_rows, src_block=SB,
+                                                 layout=layout), want, what + ", a block a slice")
+    groups = -(-B // kmod.blocked_stride(B))
+    if kmod.minplus_blocked_call.launches - n0 != groups * len(layout.slices):
+        raise AssertionError(f"{what}: {kmod.minplus_blocked_call.launches - n0} blocked "
+                             f"launches for {groups} lane groups x {len(layout.slices)} slices")
+    plain = minplus_blocked_torch(layout, dist, lab)
+    if not all(bool(torch_equal(a, b)) for a, b in zip(plain, want)):
+        raise AssertionError(f"{what}: the plain fold over the layout differs")
+
+
+def torch_equal(a, b):
+    import torch
+
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
 def phase2_kernels(dev, tally):
     import torch
 
@@ -325,11 +380,8 @@ def phase2_kernels(dev, tally):
                     minplus_call(*t, block_rows=br), want, f"resident {R, K, N} {dtype} br={br}")
         for R, K, N, SB in blocked:
             t = on(dtype, *ell_inputs(R, K, N, seed=N))
-            want = minplus_torch(*t)
             for br in (min(128, R), 256):
-                tally["minplus_blocked_call"].compare(
-                    minplus_blocked_call(*t, block_rows=br, src_block=SB), want,
-                    f"blocked {R, K, N, SB} {dtype} br={br}")
+                check_blocked(tally, t, SB, f"blocked {R, K, N, SB} {dtype} br={br}", br)
     # all-padding rows: the identity triple
     R, K, N = 128, 8, 64
     empty = (torch.zeros((R, K), dtype=torch.int32, device=dev),
@@ -348,22 +400,21 @@ def phase2_kernels(dev, tally):
              torch.from_numpy(dist).to(dev, dd), torch.from_numpy(lab).to(dev))
         want = minplus_torch(*t)
         tally["minplus_call"].compare(minplus_call(*t), want, f"mixed {wd}/{dd}")
-        tally["minplus_blocked_call"].compare(
-            minplus_blocked_call(*t, src_block=300), want, f"mixed {wd}/{dd}")
+        check_blocked(tally, t, 300, f"mixed {wd}/{dd}")
     # K sweep at a ragged R: narrower, equal to and wider than a warp; K = 33
     # ends the resident kernels' bulk copies off 16 bytes
     for K in (4, 8, 16, 32, 33, 48):
         t = on(torch.float32, *ell_inputs(1537, K, 3001, seed=K))
         want = minplus_torch(*t)
         tally["minplus_call"].compare(minplus_call(*t, block_rows=256), want, f"K={K}")
-        tally["minplus_blocked_call"].compare(
-            minplus_blocked_call(*t, block_rows=256, src_block=1000), want, f"K={K}")
+        check_blocked(tally, t, 1000, f"K={K}")
     for K in (4, 33, 48):
         for B in (3, 8):
             for dtype in (torch.float32, torch.bfloat16):
                 t = on(dtype, *lane_inputs(1537, K, 3001, B, seed=K))
                 tally["minplus_call (lanes)"].compare(
                     minplus_call(*t, block_rows=256), minplus_torch(*t), f"K={K} B={B} {dtype}")
+                check_blocked(tally, t, 1000, f"K={K} B={B} {dtype}")
     # rows too wide for two stages of eight in shared memory: read in place
     for K in (1800, 2500):
         for B in (None, 8):
@@ -372,6 +423,7 @@ def phase2_kernels(dev, tally):
                 key = "minplus_call" if B is None else "minplus_call (lanes)"
                 tally[key].compare(minplus_call(*t), minplus_torch(*t),
                                    f"wide K={K} B={B} {dtype}")
+                check_blocked(tally, t, 1024, f"wide K={K} B={B} {dtype}")
     # all-padding rows in eight lanes
     R, K, N, B = 203, 8, 64, 8
     empty8 = (torch.zeros((R, K), dtype=torch.int32, device=dev),
@@ -381,6 +433,8 @@ def phase2_kernels(dev, tally):
               torch.full((B, R), IMAX, dtype=torch.int32, device=dev),
               torch.full((B, R), IMAX, dtype=torch.int32, device=dev))
     tally["minplus_call (lanes)"].compare(minplus_call(*empty8), ident8, "empty rows, 8 lanes")
+    tally["minplus_blocked_call (lanes)"].compare(
+        minplus_blocked_call(*empty8, src_block=16), ident8, "empty rows, 8 lanes")
     # mixed input types with lanes
     for B in (2, 8):
         nbr, wgt, dist, lab = lane_inputs(500, 32, 2000, B, seed=9)
@@ -389,6 +443,7 @@ def phase2_kernels(dev, tally):
                  torch.from_numpy(dist).to(dev, dd), torch.from_numpy(lab).to(dev))
             tally["minplus_call (lanes)"].compare(
                 minplus_call(*t), minplus_torch(*t), f"mixed {wd}/{dd} B={B}")
+            check_blocked(tally, t, 300, f"mixed {wd}/{dd} B={B}")
     # the record table the resident kernels gather from: the card's pack
     # equals the plain version's (checked here, its time is in the kernels')
     for B in (None, 1, 2, 3, 8, 9, 17):
@@ -405,8 +460,7 @@ def phase2_kernels(dev, tally):
             want = minplus_torch(*t)
             key = "minplus_call" if B is None else "minplus_call (lanes)"
             tally[key].compare(minplus_call(*t, block_rows=64), want, f"ties B={B} {dtype}")
-            tally["minplus_blocked_call"].compare(
-                minplus_blocked_call(*t, src_block=16), want, f"ties B={B} {dtype}")
+            check_blocked(tally, t, 16, f"ties B={B} {dtype}")
 
 
 def phase2_lanes(dev, tally):
@@ -417,7 +471,7 @@ def phase2_lanes(dev, tally):
     import numpy as np
     import torch
 
-    from repro_torch.kernels.minplus.minplus import minplus_blocked_call, minplus_call
+    from repro_torch.kernels.minplus.minplus import minplus_call
     from repro_torch.kernels.minplus.ref import minplus_torch
 
     shapes = [(1000, 32, 777, 96), (4099, 16, 70000, 4096), (300, 48, 1000, 1000)]
@@ -438,9 +492,7 @@ def phase2_lanes(dev, tally):
                     what = f"lanes B={B} {R, K, N} {dtype} unreached={unreached}"
                     tally["minplus_call (lanes)"].compare(
                         minplus_call(*t, block_rows=256), want, "resident " + what)
-                    tally["minplus_blocked_call"].compare(
-                        minplus_blocked_call(*t, block_rows=128, src_block=SB), want,
-                        "blocked " + what)
+                    check_blocked(tally, t, SB, "blocked " + what, 128)
 
 
 SEGMIN_PATH_SHAPE = (8192, 2048, 256)  # (NB, EB, vb): 293 MB of inputs and outputs
@@ -557,6 +609,11 @@ def phase4_card_vs_cpu(dev, counters):
         if (rg.total_distance, rg.num_edges) != (rc.total_distance, rc.num_edges):
             raise AssertionError("solve output: card and CPU differ")
         R = tuple(hg.artifact("ell").nbr.shape)
+        if sb is not None:
+            slices = len(hg.artifact("blocked_layout").slices)
+            if counters[sb][1] != ta.iterations * slices:
+                raise AssertionError(f"blocked launches {counters[sb][1]} != {ta.iterations} "
+                                     f"rounds x {slices} slices")
         log(f"phase 4: scale 16 src_block={sb} ELL {R}: bit-identical; "
             f"D={rg.total_distance} edges={rg.num_edges} rounds={ta.iterations} "
             f"relax={ta.relaxations} msgs={ta.messages}; card {tg:.3f} s, cpu {tc:.3f} s")
@@ -610,11 +667,12 @@ def phase5_server_card_vs_cpu(dev):
         kmod.minplus_blocked_call.lane_launches = 0
         outs[str(d)] = h.solve(rows)
         if d == dev:
-            launches["minplus_blocked_call"] = kmod.minplus_blocked_call.lane_launches
+            launches["minplus_blocked_call (lanes)"] = kmod.minplus_blocked_call.lane_launches
+            per_round = blocked_launches_per_call(h, len(rows))
     a, b = outs[str(dev)], outs["cpu"]
-    if launches["minplus_blocked_call"] != a.telemetry.iterations:
-        raise AssertionError(f"blocked lane launches {launches['minplus_blocked_call']} != "
-                             f"rounds {a.telemetry.iterations}")
+    if launches["minplus_blocked_call (lanes)"] != a.telemetry.iterations * per_round:
+        raise AssertionError(f"blocked lane launches {launches['minplus_blocked_call (lanes)']} "
+                             f"!= rounds {a.telemetry.iterations} x {per_round}")
     for part, fields in (("state", ("dist", "lab", "pred")),
                          ("tree", ("in_tree_vertex", "path_edge", "bridge_u", "bridge_v",
                                    "bridge_w", "bridge_valid", "total_distance", "num_edges")),
@@ -628,9 +686,19 @@ def phase5_server_card_vs_cpu(dev):
             and a.telemetry.relaxations == b.telemetry.relaxations):
         raise AssertionError("batch solve output: card and CPU differ")
     log(f"phase 5: scale 16 batch (8, 16) src_block=4096: bit-identical; rounds "
-        f"{a.raw.stats.iterations.tolist()}, {launches['minplus_blocked_call']} blocked "
+        f"{a.raw.stats.iterations.tolist()}, {launches['minplus_blocked_call (lanes)']} blocked "
         f"lane launches")
     return launches
+
+
+def blocked_launches_per_call(h, lanes):
+    """Blocked launches of one relaxation of ``lanes`` lanes on the prepared
+    handle ``h``: one a lane group and slice of its layout."""
+    from repro_torch.kernels.minplus.minplus import blocked_stride
+    from repro_torch.solver.backends import blocked_layout_cached
+
+    layout = blocked_layout_cached(h.graph, h.config, lanes)
+    return -(-lanes // blocked_stride(lanes)) * len(layout.slices)
 
 
 def seeds_dev(seeds, dev):
@@ -644,6 +712,19 @@ def bound_ms(R, K, N, dist_bytes=4, wgt_bytes=4):
     written once, over the device memory rate (the operations, ~2 a lane,
     are far below the card's rate)."""
     nbytes = R * K * (4 + wgt_bytes) + N * (dist_bytes + 4) + R * 12
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def layout_bound_ms(layout, B, dist_bytes=4):
+    """Least time of one blocked relaxation of B lanes over ``layout``: its
+    live slots (neighbor and weight) and its run table (row and offset)
+    read once, each lane's dist and lab read once, each lane's output
+    triple written once, over the device memory rate.  The layout is the
+    blocked kernel's input in place of the ELL, whose padding slots it
+    never reads."""
+    slots = int(layout.run_off[layout.num_runs])
+    nbytes = (slots * (4 + layout.slot_wgt.element_size()) + layout.num_runs * 12
+              + B * layout.n * (dist_bytes + 4) + B * layout.rows * 12)
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -753,15 +834,119 @@ def phase6_full_width(dev, scale, n_seeds, tally):
     if bool(upd.any()):
         raise AssertionError("one more relaxation of the fixpoint improved a vertex")
     del want
-    return rec, h, st
+    return rec, h, st, (seeds, first)
+
+
+RAW_FIELDS = (("state", ("dist", "lab", "pred")),
+              ("tree", ("in_tree_vertex", "path_edge", "bridge_u", "bridge_v", "bridge_w",
+                        "bridge_valid", "total_distance", "num_edges")),
+              ("stats", ("iterations", "relaxations", "messages", "history")))
+
+
+def same_raw(a, b, what):
+    """Two SteinerResults (raw solve outputs) equal bit for bit."""
+    for part, fields in RAW_FIELDS:
+        for f in fields:
+            if not torch_equal(getattr(getattr(a, part), f), getattr(getattr(b, part), f)):
+                raise AssertionError(f"{what}: {part}.{f} differs")
+    for f in ("parent", "dmat"):
+        if not torch_equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def phase8_blocked_full_width(dev, h, single_in, batch_in):
+    """The source-blocked path at full width, against the resident solves of
+    phases 6 and 7.  Returns the record, the blocked single handle and the
+    launches of its solves and of the blocked batch."""
+    from repro_torch.kernels.minplus import minplus as kmod
+    from repro_torch.kernels.minplus import ops as kops
+    from repro_torch.solver import SteinerSolver
+
+    seeds, resident = single_in
+    distinct, out8, bcfg = batch_in
+    cfg = h.config.replace(src_block=4096)
+    b0 = kmod.blocked_layout.builds
+    hb, prep_s = timed(lambda: SteinerSolver(cfg, device=dev).prepare(h.graph))
+    layout = hb.artifact("blocked_layout")
+    rec = {"prepare_s": prep_s, "slices": len(layout.slices), "slice_width": layout.slice_width,
+           "runs": layout.num_runs, "live_slots": int(layout.run_off[-1])}
+    kmod.minplus_call.launches = kmod.minplus_blocked_call.launches = 0
+    kmod.minplus_blocked_call.lane_launches = 0
+    solves = [timed(hb.solve, seeds) for _ in range(3)]
+    launches = kmod.minplus_blocked_call.launches
+    rounds = sum(o.telemetry.iterations for o, _ in solves)
+    if launches != rounds * len(layout.slices) or kmod.minplus_call.launches:
+        raise AssertionError(f"blocked launches {launches} (resident "
+                             f"{kmod.minplus_call.launches}) != {rounds} rounds x "
+                             f"{len(layout.slices)} slices")
+    for i, (o, _) in enumerate(solves):
+        same_raw(o.raw, resident.raw, f"blocked solve {i} vs the resident solve")
+        t, r = o.telemetry, resident.telemetry
+        if (t.iterations, t.relaxations, t.messages) != (r.iterations, r.relaxations,
+                                                         r.messages) or not (
+                t.per_round == r.per_round).all():
+            raise AssertionError(f"blocked solve {i}: telemetry differs")
+    rec.update(cold_solve_s=solves[0][1], warm_solve_s=[s for _, s in solves[1:]],
+               launches=launches, rounds=rounds)
+    log(f"phase 8: src_block=4096 prepare {prep_s:.3f} s (layout: {len(layout.slices)} slices "
+        f"of {layout.slice_width} vertices, {layout.num_runs} runs, {rec['live_slots']} live "
+        f"slots); cold {solves[0][1]:.3f} s, warm "
+        + ", ".join(f"{s:.3f}" for _, s in solves[1:])
+        + f" s; bit-identical to the resident solve; {launches} launches = {rounds} rounds x "
+        f"{len(layout.slices)} slices")
+    # warm solves and their Voronoi stage alone (the kernels' loop; the
+    # tail is the same), the two paths in turns: resident, blocked, blocked,
+    # resident
+    ell, sd = h.artifact("ell"), seeds_dev(seeds, dev)
+    turns = {"resident": [], "blocked": []}
+    loops = {"resident": [], "blocked": []}
+    for path in ("resident", "blocked", "blocked", "resident"):
+        sb, lay = (4096, layout) if path == "blocked" else (None, None)
+        turns[path].append(timed((hb if sb else h).solve, seeds)[1])
+        _, secs = timed(kops.voronoi_cells_pallas, ell, sd, src_block=sb, layout=lay,
+                        max_iters=cfg.max_iters, telemetry_rounds=cfg.telemetry_rounds)
+        loops[path].append(secs)
+    rec["solve_in_turns_s"], rec["t_voronoi_s"] = turns, loops
+    log("phase 8: in turns, warm solve (s): resident " + ", ".join(
+        f"{x:.3f}" for x in turns["resident"]) + "; blocked " + ", ".join(
+        f"{x:.3f}" for x in turns["blocked"]) + "; its Voronoi stage: resident " + ", ".join(
+        f"{x:.4f}" for x in loops["resident"]) + "; blocked " + ", ".join(
+        f"{x:.4f}" for x in loops["blocked"]))
+    prof = device_profile(lambda: kops.voronoi_cells_pallas(
+        ell, sd, src_block=4096, layout=layout, max_iters=cfg.max_iters,
+        telemetry_rounds=cfg.telemetry_rounds), min(loops["blocked"]))
+    rec.update({f"profile_{k}": v for k, v in prof.items()})
+    log(f"phase 8: device busy {prof['busy_share']:.3f} of the blocked Voronoi stage; in-loop "
+        f"device ms a launch {json.dumps(prof['minplus_ms_per_launch'])} over "
+        f"{json.dumps(prof['minplus_launches'])} launches")
+
+    hbb = SteinerSolver(bcfg.replace(src_block=4096), device=dev).prepare(h.graph)
+    kmod.minplus_blocked_call.lane_launches = 0
+    outb, rec["batch_s"] = timed(hbb.solve, distinct)
+    lane_launches = kmod.minplus_blocked_call.lane_launches
+    per_round = blocked_launches_per_call(hbb, len(distinct))
+    if lane_launches != outb.telemetry.iterations * per_round:
+        raise AssertionError(f"blocked lane launches {lane_launches} != rounds "
+                             f"{outb.telemetry.iterations} x {per_round}")
+    same_raw(outb.raw, out8.raw, "blocked batch vs the resident batch")
+    if kmod.blocked_layout.builds != b0 + 2:  # one lane, and a lane axis
+        raise AssertionError(f"{kmod.blocked_layout.builds - b0} layout builds for two "
+                             "prepared handles (one lane and a lane axis), not 2")
+    rec.update(batch_lane_launches=lane_launches, batch_rounds=outb.telemetry.iterations,
+               batch_launches_per_round=per_round)
+    log(f"phase 8: the {len(distinct)}-key bucket-{distinct.shape[1]} batch with src_block=4096 "
+        f"in {rec['batch_s']:.3f} s: bit-identical to the resident batch; {lane_launches} lane "
+        f"launches = {outb.telemetry.iterations} rounds x {per_round}; "
+        f"{kmod.blocked_layout.builds - b0} layout builds")
+    return rec, hb, launches, lane_launches
 
 
 def phase7_serving(dev, h):
     """The perf_serve stream through SteinerServer on phase 6's graph.
 
-    Returns the record, the lane launches of the stream and the (B, N)
-    state of a batch of eight distinct pool keys (the lane kernel's
-    comparison and timing inputs)."""
+    Returns the record, the lane launches of the stream, and a batch of
+    eight distinct pool keys with its resident solve (the lane kernels'
+    comparison and timing inputs; phase 8 solves it blocked)."""
     import numpy as np
     import torch
 
@@ -889,18 +1074,17 @@ def phase7_serving(dev, h):
         f"{json.dumps(prof['top_device_ms'])}")
     log(f"phase 7: in-loop device ms a launch {json.dumps(prof['minplus_ms_per_launch'])} "
         f"over {json.dumps(prof['minplus_launches'])} launches")
-    return rec, lane_launches, out8.raw.state
+    return rec, lane_launches, (distinct, out8, server._handle.config)
 
 
-def kernel_times(dev, ell, st, blocked_in, lanes_st, seg_in, tally):
+def kernel_times(dev, ell, st, blocked_in, lanes_in, seg_in, tally):
     """ms of each kernel and of the plain version at its path's shape (the
     blocked and the lane kernels are also held against the plain version
     here)."""
     import torch
 
     from repro_torch.kernels.minplus import minplus as kmod
-    from repro_torch.kernels.minplus.ops import INF, IMAX as IM, _pad_rows
-    from repro_torch.kernels.minplus.ref import minplus_torch
+    from repro_torch.kernels.minplus.ref import minplus_blocked_torch, minplus_torch
     from repro_torch.kernels.segmin.ref import segmin_bucketed_torch
     from repro_torch.kernels.segmin.segmin import segmin_bucketed_call
 
@@ -918,27 +1102,13 @@ def kernel_times(dev, ell, st, blocked_in, lanes_st, seg_in, tally):
         plain_ms=event_ms(lambda: minplus_torch(*args), 3), bound_ms=bound_ms(R, K, N),
         lanes_b1_ms=event_ms(lambda: kmod.minplus_call(*args1), 20),
         pack_ms=event_ms(lambda: kmod.pack_records(st.dist, st.lab), 20))}
-    h16, st16 = blocked_in
-    e16 = h16.artifact("ell")
-    SB = 4096
-    R, K = e16.nbr.shape
-    bargs = (e16.nbr, e16.wgt, _pad_rows(st16.dist, SB, INF), _pad_rows(st16.lab, SB, IM))
-    N = bargs[2].shape[0]
-    tally["minplus_blocked_call"].compare(
-        kmod.minplus_blocked_call(*bargs, src_block=SB), minplus_torch(*bargs),
-        "blocked at its main-path shape")
-    res["minplus_blocked_call"] = dict(
-        shape=[R, K, N, SB],
-        ms=event_ms(lambda: kmod.minplus_blocked_call(*bargs, src_block=SB), 20),
-        plain_ms=event_ms(lambda: minplus_torch(*bargs), 5),
-        resident_ms=event_ms(lambda: kmod.minplus_call(*bargs), 20),
-        bound_ms=bound_ms(R, K, N))
 
     # the lane kernel at its serving shape: one served batch's (B, N) state;
     # its plain version runs lane by lane (the (B, R, K) temporaries of one
     # vectorised call would not fit beside the graph)
-    R, K = ell.nbr.shape
-    B, N = lanes_st.dist.shape
+    _, out8, _ = lanes_in
+    lanes_st = out8.raw.state
+    B = lanes_st.dist.shape[0]
     largs = (ell.nbr, ell.wgt, lanes_st.dist, lanes_st.lab)
 
     def plain_lanes():
@@ -946,15 +1116,17 @@ def kernel_times(dev, ell, st, blocked_in, lanes_st, seg_in, tally):
                 for b in range(B)]
         return tuple(torch.stack(x) for x in zip(*outs))
 
-    tally["minplus_call (lanes)"].compare(
-        kmod.minplus_call(*largs), plain_lanes(), "lanes at the serving shape")
+    want8 = plain_lanes()
+    tally["minplus_call (lanes)"].compare(kmod.minplus_call(*largs), want8,
+                                          "lanes at the serving shape")
+    lanes_bound = (R * K * 8 + B * (N * 8 + R * 12)) / HBM_BYTES_PER_S * 1e3
     res["minplus_call (lanes)"] = dict(
         shape=[R, K, N, B], ms=event_ms(lambda: kmod.minplus_call(*largs), 20),
         plain_ms=event_ms(plain_lanes, 2),
         single_lane_launches_ms=event_ms(lambda: [
             kmod.minplus_call(ell.nbr, ell.wgt, lanes_st.dist[b], lanes_st.lab[b])
             for b in range(B)], 5),
-        bound_ms=(R * K * 8 + B * (N * 8 + R * 12)) / HBM_BYTES_PER_S * 1e3,
+        bound_ms=lanes_bound,
         pack_ms=event_ms(lambda: kmod.pack_records(lanes_st.dist, lanes_st.lab), 20))
     # the lane kernel on the first b lanes of the same state, b = 1, 2, 4, 8
     res["minplus_call (lanes)"]["b_sweep"] = {
@@ -962,6 +1134,80 @@ def kernel_times(dev, ell, st, blocked_in, lanes_st, seg_in, tally):
             ell.nbr, ell.wgt, lanes_st.dist[:b], lanes_st.lab[:b]), 10),
             bound_ms=(R * K * 8 + b * (N * 8 + R * 12)) / HBM_BYTES_PER_S * 1e3)
         for b in (1, 2, 4, 8) if b <= B}
+
+    # the blocked kernel at full width on the same inputs as the resident
+    # ones: its layout's build, its plain fold, and a few slice budgets
+    # (single) and lane groups (B lanes) beside the constants in use
+    SB = 4096
+    hb = blocked_in["full"]
+    layout = hb.artifact("blocked_layout")
+    want = minplus_torch(*args)
+
+    def blocked(a, lay):
+        return lambda: kmod.minplus_blocked_call(*a, src_block=SB, layout=lay)
+
+    tally["minplus_blocked_call"].compare(blocked(args, layout)(), want, "blocked, full width")
+    plain_fold, fold_s = timed(minplus_blocked_torch, layout, st.dist, st.lab)
+    if not all(torch_equal(a, b) for a, b in zip(plain_fold, want)):
+        raise AssertionError("the plain fold over the full-width layout differs")
+    del plain_fold
+    budgets = {}
+    for mb in (16, 24, 32, 48, 1024):  # 1024 MB: one slice
+        lay = kmod.blocked_layout(ell.nbr, ell.wgt, N, SB, budget=mb << 20)
+        budgets[mb] = dict(slices=len(lay.slices), runs=lay.num_runs,
+                           ms=event_ms(blocked(args, lay), 10))
+        del lay
+    res["minplus_blocked_call"] = dict(
+        shape=[R, K, N, SB], slices=len(layout.slices), runs=layout.num_runs,
+        live_slots=int(layout.run_off[layout.num_runs]),
+        ms=event_ms(blocked(args, layout), 20),
+        resident_ms=event_ms(lambda: kmod.minplus_call(*args), 20),
+        plain_ms=res["minplus_call"]["plain_ms"],  # the same function on the same inputs
+        plain_fold_ms=fold_s * 1e3,
+        layout_build_ms=event_ms(lambda: kmod.blocked_layout(ell.nbr, ell.wgt, N, SB), 2),
+        bound_ms=layout_bound_ms(layout, 1), ell_bound_ms=bound_ms(R, K, N),
+        budgets_mb=budgets)
+    layout8 = kmod.blocked_layout(ell.nbr, ell.wgt, N, SB, True)
+    tally["minplus_blocked_call (lanes)"].compare(blocked(largs, layout8)(), want8,
+                                                  "blocked lanes at the serving shape")
+
+    def in_groups(g, lay):  # the B lanes in calls of g lanes each
+        return lambda: [kmod.minplus_blocked_call(
+            ell.nbr, ell.wgt, lanes_st.dist[g0:g0 + g], lanes_st.lab[g0:g0 + g],
+            src_block=SB, layout=lay) for g0 in range(0, B, g)]
+
+    groups = {}  # (lanes a group, MB of one lane's records a slice)
+    for g, mb in ((1, 24), (2, 12), (2, 24), (4, 24), (8, 3), (8, 24), (8, 1024)):
+        lay = kmod.blocked_layout(ell.nbr, ell.wgt, N, SB, budget=mb << 20)
+        groups[f"{g}/{mb}"] = dict(slices=len(lay.slices), runs=lay.num_runs,
+                                   ms=event_ms(in_groups(g, lay), 5))
+        del lay
+    res["minplus_blocked_call (lanes)"] = dict(
+        shape=[R, K, N, B, SB], slices=len(layout8.slices), lane_group=kmod.blocked_stride(B),
+        ms=event_ms(blocked(largs, layout8), 20),
+        resident_ms=event_ms(lambda: kmod.minplus_call(*largs), 20),
+        plain_ms=res["minplus_call (lanes)"]["plain_ms"],  # the same function and inputs
+        layout_build_ms=event_ms(lambda: kmod.blocked_layout(
+            ell.nbr, ell.wgt, N, SB, True), 2),
+        bound_ms=layout_bound_ms(layout8, B), ell_bound_ms=lanes_bound,
+        lane_groups_mb=groups)
+    del layout8, want, want8
+
+    # the blocked kernel at its scale-16 shape (phase 4's converged state)
+    h16, st16 = blocked_in["scale16"]
+    e16 = h16.artifact("ell")
+    R, K = e16.nbr.shape
+    bargs = (e16.nbr, e16.wgt, st16.dist, st16.lab)
+    N = st16.dist.shape[0]
+    lay16 = h16.artifact("blocked_layout")
+    tally["minplus_blocked_call"].compare(blocked(bargs, lay16)(), minplus_torch(*bargs),
+                                          "blocked at the scale-16 shape")
+    res["minplus_blocked_call"]["scale16"] = dict(
+        shape=[R, K, N, SB], slices=len(lay16.slices),
+        ms=event_ms(blocked(bargs, lay16), 20),
+        plain_ms=event_ms(lambda: minplus_torch(*bargs), 5),
+        resident_ms=event_ms(lambda: kmod.minplus_call(*bargs), 20),
+        bound_ms=layout_bound_ms(lay16, 1), ell_bound_ms=bound_ms(R, K, N))
 
     NB, EB = seg_in[0].shape
     VB = SEGMIN_PATH_SHAPE[2]
@@ -1005,7 +1251,7 @@ def main(argv=None) -> int:
         log(f"phase 1: ptxas {line}")
 
     names = ("minplus_call", "minplus_call (lanes)", "minplus_blocked_call",
-             "segmin_bucketed_call")
+             "minplus_blocked_call (lanes)", "segmin_bucketed_call")
     tally = {k: Tally() for k in names}
     # ---- phase 2
     t0 = time.perf_counter()
@@ -1015,43 +1261,62 @@ def main(argv=None) -> int:
     log("phase 2: kernels equal the plain version in "
         + ", ".join(f"{k} {t.cases}" for k, t in tally.items())
         + f" cases ({time.perf_counter() - t0:.1f} s)")
+    seconds = {}  # each phase's seconds, for the log
+
+    def done(phase):
+        seconds[phase] = round(time.perf_counter() - t_start - sum(seconds.values()), 1)
+
+    done("1-2")
     # ---- phase 3
     phase3_fixed_answers(dev)
+    done("3")
     # ---- phase 4 (the blocked kernel's single-query path)
     counters = {}
-    blocked_in = phase4_card_vs_cpu(dev, counters)
+    blocked16 = phase4_card_vs_cpu(dev, counters)
     if counters[None][0] == 0 or counters[None][1] != 0:
         raise AssertionError(f"resident solve launched {counters[None]}")
     if counters[4096][1] == 0 or counters[4096][0] != 0:
         raise AssertionError(f"blocked solve launched {counters[4096]}")
+    done("4")
     # ---- phase 5 (both lane kernels' serving path at scale 16)
     lanes16 = phase5_server_card_vs_cpu(dev)
     if min(lanes16.values()) == 0:
         raise AssertionError(f"scale-16 serving launched {lanes16}")
+    done("5")
     # ---- phase 6 (the resident kernel's main path, full width)
-    rec, h, st = phase6_full_width(dev, args.scale, args.seeds, tally)
+    rec, h, st, single_in = phase6_full_width(dev, args.scale, args.seeds, tally)
+    done("6")
     # ---- phase 7 (the lane kernel's serving path, full width)
-    serve_rec, lane_launches, lanes_st = phase7_serving(dev, h)
+    serve_rec, lane_launches, lanes_in = phase7_serving(dev, h)
     if lane_launches == 0:
         raise AssertionError("the served stream launched no lane kernel")
-    times = kernel_times(dev, h.artifact("ell"), st, blocked_in, lanes_st, seg_in, tally)
+    done("7")
+    # ---- phase 8 (the blocked kernels' main path, full width)
+    blocked_rec, hb, blocked_launches, blocked_lane_launches = phase8_blocked_full_width(
+        dev, h, single_in, lanes_in)
+    del single_in
+    done("8")
+    times = kernel_times(dev, h.artifact("ell"), st, {"full": hb, "scale16": blocked16},
+                         lanes_in, seg_in, tally)
+    done("9")
     log(f"kernel times: {json.dumps(times)}")
     log("tolerance: exact (every output of every kernel equals the plain version's; "
         + ", ".join(f"{k}: {t.cases} cases, {t.mismatches} mismatches"
                     for k, t in tally.items()) + ")")
 
-    # ---- phase 8
+    # ---- phase 9
     launches = {"minplus_call": rec["launches_per_solve"] * 4,
                 "minplus_call (lanes)": lane_launches,
-                "minplus_blocked_call": counters[4096][1],
+                "minplus_blocked_call": blocked_launches,
+                "minplus_blocked_call (lanes)": blocked_lane_launches,
                 "segmin_bucketed_call": seg_launches}
     minplus_src = "src/repro_torch/kernels/minplus/csrc/minplus.cu"
-    sources = {"minplus_call": minplus_src, "minplus_call (lanes)": minplus_src,
-               "minplus_blocked_call": minplus_src,
-               "segmin_bucketed_call": "src/repro_torch/kernels/segmin/csrc/segmin.cu"}
+    sources = {name: minplus_src for name in names}
+    sources["segmin_bucketed_call"] = "src/repro_torch/kernels/segmin/csrc/segmin.cu"
     replaces = {"minplus_call": "src/repro/kernels/minplus/minplus.py:77",
                 "minplus_call (lanes)": "src/repro/kernels/minplus/minplus.py:77",
                 "minplus_blocked_call": "src/repro/kernels/minplus/minplus.py:159",
+                "minplus_blocked_call (lanes)": "src/repro/kernels/minplus/minplus.py:159",
                 "segmin_bucketed_call": "src/repro/kernels/segmin/segmin.py:66"}
     kernels = []
     for name in names:
@@ -1066,16 +1331,17 @@ def main(argv=None) -> int:
             "bound_by": "bytes", "library_ms": None, "shape": kt["shape"],
         })
     total_s = time.perf_counter() - t_start
-    log(f"script {total_s:.1f} s after the imports")
+    log(f"script {total_s:.1f} s after the imports; by phase {json.dumps(seconds)}")
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
             {"device": smi, "torch": torch.__version__, "build_s": build_s, "ptxas": ptxas,
-             "full_width": rec, "serving": serve_rec, "scale16_lane_launches": lanes16,
+             "full_width": rec, "serving": serve_rec, "blocked_full_width": blocked_rec,
+             "scale16_lane_launches": lanes16,
              "kernel_times": times, "kernels": kernels, "seconds": total_s}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
-    # ---- phase 9
+    # ---- phase 10
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -153,7 +153,7 @@ def to_ell(g: Graph, k: int, *, pad_rows_to: int = 1) -> EllGraph:
 
 
 _ELL_MEMO_CAP = 16
-_ell_memo: "dict[tuple[int, int], tuple[weakref.ref, EllGraph]]" = {}
+_ell_memo: "dict[tuple, tuple[weakref.ref, object]]" = {}
 
 # Per-Graph version tokens: a process-unique, never-reused integer per graph
 # object.  ``id(g)`` is not a safe cache key: a collected Graph's id can be
@@ -182,17 +182,18 @@ def bump_graph_version(g: Graph) -> int:
     return _token_counter
 
 
-def ell_view_cached(g: Graph, k: int) -> EllGraph:
-    """Memoized :func:`to_ell` keyed on ``(graph_token(g), k)``.
+def graph_cached(g: Graph, key: tuple, build):
+    """Memoized ``build()`` of a view of ``g``, keyed on
+    ``(graph_token(g), *key)``.
 
     The memo holds a weak reference to ``g``, so retiring a graph frees its
     views; it keeps at most ``_ELL_MEMO_CAP`` entries (FIFO eviction).
     """
-    key = (graph_token(g), int(k))
+    key = (graph_token(g), *key)
     hit = _ell_memo.get(key)
     if hit is not None and hit[0]() is g:
         return hit[1]
-    ell = to_ell(g, k)
+    view = build()
     while len(_ell_memo) >= _ELL_MEMO_CAP:
         _ell_memo.pop(next(iter(_ell_memo)))
 
@@ -201,5 +202,11 @@ def ell_view_cached(g: Graph, k: int) -> EllGraph:
         if cur is not None and cur[0] is ref:
             del _ell_memo[key]
 
-    _ell_memo[key] = (weakref.ref(g, _drop), ell)
-    return ell
+    _ell_memo[key] = (weakref.ref(g, _drop), view)
+    return view
+
+
+def ell_view_cached(g: Graph, k: int) -> EllGraph:
+    """Memoized :func:`to_ell` keyed on ``(graph_token(g), k)``
+    (:func:`graph_cached`)."""
+    return graph_cached(g, (int(k),), lambda: to_ell(g, k))

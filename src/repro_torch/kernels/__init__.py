@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
 minplus/  the min-plus ELL relaxation of the Voronoi loop: ``minplus_call``
-          (distances gathered from device memory) and
-          ``minplus_blocked_call`` (distances staged through shared memory
-          in source slices), both in ``minplus/csrc/minplus.cu``; each
-          takes (N,) distances or a (B, N) batch of query lanes.
+          (distances gathered from the whole table) and
+          ``minplus_blocked_call`` (one launch a source slice sized to the
+          L2, over a per-graph layout of the adjacency), both in
+          ``minplus/csrc/minplus.cu``; each takes (N,) distances or a
+          (B, N) batch of query lanes.
 segmin/   the bucketed lexicographic segment min ``segmin_bucketed_call``
           (``segmin/csrc/segmin.cu``); no solver path calls it yet.
 

@@ -48,9 +48,10 @@
 //     row waits on ceil(K / U) gather round trips, not 4 K / 32;
 //   - the slot order is rotated by the row's index in the tile, so the
 //     rows a warp reads hit distinct shared-memory banks (K = 32).
-//   Both kernels share this body: the single one folds one lane a thread
-//   from one 8-byte record a vertex (67 MB at scale 23, not padded to two
-//   lanes), the lane one a lane pair a thread.  A (1, N) lane input
+//   Both kernels share this body (the blocked ones too, below): the
+//   single one folds one lane a thread from one 8-byte record a vertex (67
+//   MB at scale 23, not padded to two lanes), the lane one a lane pair a
+//   thread.  A (1, N) lane input
 //   launches the single kernel: with its lane counts fixed at compile time
 //   it is ~5 % faster than the lane body at B = 1 (runtime division by the
 //   pair count a work item).
@@ -66,15 +67,38 @@
 // minplus_blocked          replaces src/repro/kernels/minplus/minplus.py
 //   minplus_blocked_call (Pallas body _blocked_kernel, helper _lex_merge).
 //   Same function, same bound.  On the TPU the grid's second axis walked
-//   source slices in order and revisited the output tile; on the GPU blocks
-//   run in parallel and carry nothing from one to the next, so that axis
-//   becomes a loop inside the block: one thread per row keeps the three
-//   lex accumulators in registers while the block stages each (SB,) slice
-//   of dist and lab in shared memory.  Its traffic grows as (R/BR)*N like
-//   the TPU kernel's.  N need not be a multiple of SB: the last slice is
-//   masked.  With a lane axis, blockIdx.y is the query lane: each block
-//   stages its own lane's slices, so the ELL is read B times (from L2 when
-//   it fits).  It takes dist/lab as they are (no records).
+//   (SB,) source slices in order and lex-merged each into the revisited
+//   output tile, so only one slice of dist/lab had to sit in VMEM.  On the
+//   H100 the on-chip level a slice must fit is the 50 MB L2.
+//
+//   What held the first design back (65x its bound at scale 16; about a
+//   second a launch at scale 23): every block of 256 rows staged every
+//   slice of dist/lab in shared memory and re-read its rows' K slots for
+//   every slice, so a launch moved (R/256)*N*8 + (N/SB)*R*K*4 bytes.
+//
+//   Design now: one launch a source slice, in order, on the caller's
+//   stream, each gathering only from its slice.  A slice is a whole number
+//   of SB blocks whose packed records (pack_records, 8 B a vertex and lane)
+//   fit an L2 budget.  The wrapper's per-graph layout (blocked_layout)
+//   holds the live slots (finite weight) sorted by (slice, row): one run of
+//   (nbr, wgt) a row that has slots in the slice, with the run's row and
+//   its slot offset.  Every row with no live slot has an empty run in the
+//   first slice.  A row has at most one run a slice, so a launch has no
+//   write conflicts.  The kernel is the resident body over tiles of TR
+//   runs: the producer stages a tile's slots (its span aligned out to 8
+//   slots; a stage holds the layout's widest tile, which the wrapper
+//   measures once) and its run table with bulk copies, evict-first, so a
+//   consumer finds all it needs in shared memory; it folds one run (or a
+//   run's lane pair) into register triples that start from the row's
+//   triple of the slices before (read back) or from the identity (the
+//   row's first run), and writes the triple back.  Traffic a call: the
+//   live slots and run table once a lane group, each record once a lane,
+//   and the output triple written once a run and read once a run after a
+//   row's first.  Lanes are folded in groups of the layout's record
+//   stride, one launch a (group, slice); a group of one lane launches the
+//   single body.  With B lanes each slice more costs B more
+//   read-modify-writes of the triples, which at B = 8 outweigh what the L2
+//   hits save, so the wrapper gives a lane group one slice (see PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,10 +112,12 @@ constexpr int MAX_STAGES = 4;
 constexpr int MAX_CONSUMERS = 256;       // consumer threads of a block (8 warps)
 constexpr int SMEM_HEADER = 128;         // bytes before the first stage: the mbarriers
 constexpr size_t MAX_SMEM = 232448;      // shared memory one block can use on Hopper
-// Slots whose gathers a thread issues together, for one lane (U1) and for a
-// lane pair (U2), and the ring bytes a block aims at: the fastest of the
-// values tried at full width on an H100 (see PERF.md).
+// Slots whose gathers a thread issues together, for one lane (U1; UB1 in
+// the blocked kernel, whose runs are shorter than rows) and for a lane pair
+// (U2), and the ring bytes a block aims at: the fastest of the values tried
+// at full width on an H100 (see PERF.md).
 constexpr int U1 = 16;
+constexpr int UB1 = 8;
 constexpr int U2 = 8;
 constexpr size_t RING_BUDGET = 96 * 1024;
 
@@ -271,35 +297,170 @@ __device__ __forceinline__ void fold_tile(const int32_t* __restrict__ sn,
   }
 }
 
-// The body both resident kernels share.  Block: CT consumer threads, then
-// one producer warp.  Shared memory: full[S], empty[S] mbarriers, then S
-// stages of (TR*K nbr, TR*K wgt).  Block b walks tiles b, b + grid, ...
-// S = 0 (rows too wide for two stages of 8): no ring, the consumers read
-// their rows' nbr and wgt in place.
+// Issues the bulk copy of ``bytes`` at src into the stage at dst, the
+// ragged tail (bytes past the last multiple of 16) by hand; returns the
+// bytes the copy completes on ``bar``.  dst and src start on 16 bytes.
+__device__ __forceinline__ uint32_t stage_copy(unsigned char* dst, const void* src,
+                                               uint32_t bytes, uint64_t* bar, uint64_t pol) {
+  const uint32_t bulk = bytes & ~15u;
+  const unsigned char* g = static_cast<const unsigned char*>(src);
+  for (uint32_t b = bulk; b < bytes; ++b) dst[b] = g[b];
+  if (bulk) bulk_load(dst, g, bulk, bar, pol);
+  return bulk;
+}
+
+// The resident kernels' tiles: tile t is ELL rows [t*TR, t*TR + TR).  A
+// stage holds TR*K nbr, then TR*K wgt.
 template <typename TW, int G>
-__device__ __forceinline__ void relax_tiles(const int32_t* __restrict__ nbr,
-                                            const TW* __restrict__ wgt,
-                                            const int2* __restrict__ rec,
-                                            float* __restrict__ out_m,
-                                            int32_t* __restrict__ out_l,
-                                            int32_t* __restrict__ out_s, int64_t R, int K,
-                                            int B, int stride, int P, int TR, int S, int CT) {
-  const int64_t ntiles = (R + TR - 1) / TR;
+struct RowTiles {
+  const int32_t* nbr;
+  const TW* wgt;
+  const int2* rec;
+  float* out_m;
+  int32_t* out_l;
+  int32_t* out_s;
+  int64_t R;
+  int K, B, stride, P, TR;
+
+  __device__ int64_t count() const { return (R + TR - 1) / TR; }
+
+  __device__ int rows(int64_t t) const { return (int)(R - t * TR < TR ? R - t * TR : TR); }
+
+  // Producer: stages tile t at st; returns the bytes to expect on bar.
+  __device__ uint32_t issue(int64_t t, unsigned char* st, uint64_t* bar, uint64_t pol) const {
+    const int64_t first = t * TR * K, slots = (int64_t)rows(t) * K;
+    const size_t wgt_at = (size_t)TR * K * sizeof(int32_t);
+    return stage_copy(st, nbr + first, (uint32_t)(slots * sizeof(int32_t)), bar, pol) +
+           stage_copy(st + wgt_at, wgt + first, (uint32_t)(slots * sizeof(TW)), bar, pol);
+  }
+
+  // Consumers: folds tile t from its stage st, or in place if st is null.
+  __device__ void fold(int64_t t, const unsigned char* st, int CT) const {
+    const int64_t row0 = t * TR;
+    const int32_t* sn = nbr + row0 * K;
+    const TW* sw = wgt + row0 * K;
+    if (st) {
+      sn = reinterpret_cast<const int32_t*>(st);
+      sw = reinterpret_cast<const TW*>(st + (size_t)TR * K * sizeof(int32_t));
+    }
+    fold_tile<TW, G>(sn, sw, row0, rows(t), rec, out_m, out_l, out_s, R, K, B, stride, P, CT);
+  }
+};
+
+// The blocked kernels' tiles: tile t is runs [run0 + t*TR, run0 + t*TR + TR)
+// of one source slice (see the header).  run_off[j] is run j's first slot,
+// run_off[j + 1] its end; run_row[j] its row, or ~row if the row has a run
+// in an earlier slice (its triple is then read back and merged).  A stage
+// holds the tile's slots, aligned out to 8 (16 bytes of nbr and of bf16
+// wgt): ``cap`` nbr, then ``cap`` wgt (cap, from the wrapper, bounds every
+// tile's aligned span); then its runs' run_row from a multiple of 4 (TR + 8
+// entries) and run_off from a multiple of 2 (TR + 4), so no copy has a
+// ragged tail.  The layout pads all four arrays for the aligned ends.
+template <typename TW, int G>
+struct RunTiles {
+  const int32_t* nbr;
+  const TW* wgt;
+  const int32_t* run_row;
+  const int64_t* run_off;
+  const int2* rec;
+  float* out_m;
+  int32_t* out_l;
+  int32_t* out_s;
+  int64_t run0, nruns, R;
+  int B, stride, P, TR, cap;
+
+  __device__ int64_t count() const { return (nruns + TR - 1) / TR; }
+
+  __device__ int runs(int64_t t) const {
+    return (int)(nruns - t * TR < TR ? nruns - t * TR : TR);
+  }
+
+  __device__ size_t wgt_at() const { return (size_t)cap * sizeof(int32_t); }
+  __device__ size_t rows_at() const { return wgt_at() + (size_t)cap * sizeof(TW); }
+  __device__ size_t offs_at() const { return rows_at() + (size_t)(TR + 8) * sizeof(int32_t); }
+
+  __device__ uint32_t issue(int64_t t, unsigned char* st, uint64_t* bar, uint64_t pol) const {
+    const int64_t j0 = run0 + t * TR, j1 = j0 + runs(t);
+    const int64_t first = run_off[j0] & ~(int64_t)7;
+    const int64_t slots = ((run_off[j1] + 7) & ~(int64_t)7) - first;
+    const int64_t r0 = j0 & ~(int64_t)3, o0 = j0 & ~(int64_t)1;
+    return stage_copy(st, nbr + first, (uint32_t)(slots * sizeof(int32_t)), bar, pol) +
+           stage_copy(st + wgt_at(), wgt + first, (uint32_t)(slots * sizeof(TW)), bar, pol) +
+           stage_copy(st + rows_at(), run_row + r0,
+                      (uint32_t)((((j1 + 3) & ~(int64_t)3) - r0) * sizeof(int32_t)), bar, pol) +
+           stage_copy(st + offs_at(), run_off + o0,
+                      (uint32_t)((((j1 + 2) & ~(int64_t)1) - o0) * sizeof(int64_t)), bar, pol);
+  }
+
+  // Folds tile t's (run, lane group) items from its stage st (or in place
+  // if st is null); each starts from its row's triple of the earlier
+  // slices or from the identity, and writes the triple back.
+  __device__ void fold(int64_t t, const unsigned char* st, int CT) const {
+    constexpr int U = G == 1 ? UB1 : U2;
+    const int64_t j0 = run0 + t * TR;
+    const int32_t* rows = run_row + j0;
+    const int64_t* offs = run_off + j0;
+    const int32_t* sn = nbr;
+    const TW* sw = wgt;
+    int64_t first = 0;
+    if (st) {
+      rows = reinterpret_cast<const int32_t*>(st + rows_at()) + (j0 & 3);
+      offs = reinterpret_cast<const int64_t*>(st + offs_at()) + (j0 & 1);
+      first = offs[0] & ~(int64_t)7;
+      sn = reinterpret_cast<const int32_t*>(st);
+      sw = reinterpret_cast<const TW*>(st + wgt_at());
+    }
+    const int n = runs(t);
+    for (int it = threadIdx.x; it < n * P; it += CT) {
+      const int rr = it / P;
+      const int p = it - rr * P;
+      const int64_t a = offs[rr];
+      const int len = (int)(offs[rr + 1] - a);
+      const int32_t code = rows[rr];
+      const bool merge = code < 0;
+      const int64_t r = merge ? ~code : code;
+      float bd[G];
+      int32_t bl[G], bs[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int64_t o = (int64_t)(p * G + g) * R + r;
+        const bool old = merge && p * G + g < B;
+        bd[g] = old ? out_m[o] : INFINITY;
+        bl[g] = old ? out_l[o] : IMAX;
+        bs[g] = old ? out_s[o] : IMAX;
+      }
+      fold_row<TW, G, U>(sn + (a - first), sw + (a - first), len, 0, rec + p * G, stride, bd,
+                         bl, bs);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int b = p * G + g;
+        if (b < B) {
+          const int64_t o = (int64_t)b * R + r;
+          out_m[o] = bd[g];
+          out_l[o] = bl[g];
+          out_s[o] = bs[g];
+        }
+      }
+    }
+  }
+};
+
+// The body all four min-plus kernels share.  Block: CT consumer threads,
+// then one producer warp.  Shared memory: full[S], empty[S] mbarriers, then
+// S stages of ``stage_bytes``.  Block b walks tiles b, b + grid, ...  S = 0
+// (rows too wide for two stages of 8): no ring, the consumers read their
+// tiles in place.
+template <typename Tiles>
+__device__ __forceinline__ void relax_ring(const Tiles& tl, size_t stage_bytes, int S, int CT) {
+  const int64_t ntiles = tl.count();
   if (S == 0) {
     if (threadIdx.x >= CT) return;
-    for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
-      const int64_t row0 = t * TR;
-      const int rows = (int)(R - row0 < TR ? R - row0 : TR);
-      fold_tile<TW, G>(nbr + row0 * K, wgt + row0 * K, row0, rows, rec, out_m, out_l, out_s,
-                       R, K, B, stride, P, CT);
-    }
+    for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) tl.fold(t, nullptr, CT);
     return;
   }
   extern __shared__ __align__(128) unsigned char ring[];
   uint64_t* full = reinterpret_cast<uint64_t*>(ring);
   uint64_t* empty = full + MAX_STAGES;
-  const size_t nbr_bytes = (size_t)TR * K * sizeof(int32_t);  // a multiple of 32
-  const size_t stage_bytes = nbr_bytes + (size_t)TR * K * sizeof(TW);
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
@@ -318,19 +479,10 @@ __device__ __forceinline__ void relax_tiles(const int32_t* __restrict__ nbr,
       mbar_wait(&empty[s], ((i / S) & 1) ^ 1);  // the first round passes at once
       // the consumers' reads of this stage come before the copies' writes
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      // the expected bytes are armed after the copies are issued: the
+      // phase cannot complete before this thread's arrival
       unsigned char* st = ring + SMEM_HEADER + s * stage_bytes;
-      const int64_t row0 = t * TR;
-      const int64_t rows = R - row0 < TR ? R - row0 : TR;
-      const uint32_t bn = (uint32_t)(rows * K * sizeof(int32_t));
-      const uint32_t bw = (uint32_t)(rows * K * sizeof(TW));
-      const uint32_t cn = bn & ~15u, cw = bw & ~15u;  // the bulk parts
-      const unsigned char* gn = reinterpret_cast<const unsigned char*>(nbr + row0 * K);
-      const unsigned char* gw = reinterpret_cast<const unsigned char*>(wgt + row0 * K);
-      for (uint32_t b = cn; b < bn; ++b) st[b] = gn[b];  // the last tile's tail
-      for (uint32_t b = cw; b < bw; ++b) st[nbr_bytes + b] = gw[b];
-      mbar_arrive_expect_tx(&full[s], cn + cw);  // releases the tail stores too
-      if (cn) bulk_load(st, gn, cn, &full[s], pol);
-      if (cw) bulk_load(st + nbr_bytes, gw, cw, &full[s], pol);
+      mbar_arrive_expect_tx(&full[s], tl.issue(t, st, &full[s], pol));
     }
     return;
   }
@@ -339,15 +491,21 @@ __device__ __forceinline__ void relax_tiles(const int32_t* __restrict__ nbr,
   for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x, ++i) {
     const int s = i % S;
     mbar_wait(&full[s], (i / S) & 1);
-    const unsigned char* st = ring + SMEM_HEADER + s * stage_bytes;
-    const int64_t row0 = t * TR;
-    const int rows = (int)(R - row0 < TR ? R - row0 : TR);
-    fold_tile<TW, G>(reinterpret_cast<const int32_t*>(st),
-                     reinterpret_cast<const TW*>(st + nbr_bytes), row0, rows, rec, out_m, out_l,
-                     out_s, R, K, B, stride, P, CT);
+    tl.fold(t, ring + SMEM_HEADER + s * stage_bytes, CT);
     __syncwarp();
     if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
   }
+}
+
+// The stage bytes of a resident launch (tiles of TR rows) and of a blocked
+// one (tiles of TR runs spanning at most ``cap`` slots).
+__host__ __device__ inline size_t row_stage_bytes(int TR, int K, size_t wgt_size) {
+  return (size_t)TR * K * (sizeof(int32_t) + wgt_size);
+}
+
+__host__ __device__ inline size_t run_stage_bytes(int TR, int cap, size_t wgt_size) {
+  return (size_t)cap * (sizeof(int32_t) + wgt_size) + (TR + 8) * sizeof(int32_t) +
+         (TR + 4) * sizeof(int64_t);
 }
 
 // One query: (N,) records, one lane.
@@ -357,7 +515,8 @@ __global__ void __launch_bounds__(MAX_CONSUMERS + 32)
                             const int2* __restrict__ rec, float* __restrict__ out_m,
                             int32_t* __restrict__ out_l, int32_t* __restrict__ out_s,
                             int64_t R, int K, int TR, int S, int CT) {
-  relax_tiles<TW, 1>(nbr, wgt, rec, out_m, out_l, out_s, R, K, 1, 1, 1, TR, S, CT);
+  const RowTiles<TW, 1> tl{nbr, wgt, rec, out_m, out_l, out_s, R, K, 1, 1, 1, TR};
+  relax_ring(tl, row_stage_bytes(TR, K, sizeof(TW)), S, CT);
 }
 
 // B > 1 query lanes: (N, stride) lane-minor records, a lane pair a thread.
@@ -368,7 +527,40 @@ __global__ void __launch_bounds__(MAX_CONSUMERS + 32)
                                   float* __restrict__ out_m, int32_t* __restrict__ out_l,
                                   int32_t* __restrict__ out_s, int64_t R, int K, int B,
                                   int stride, int P, int TR, int S, int CT) {
-  relax_tiles<TW, 2>(nbr, wgt, rec, out_m, out_l, out_s, R, K, B, stride, P, TR, S, CT);
+  const RowTiles<TW, 2> tl{nbr, wgt, rec, out_m, out_l, out_s, R, K, B, stride, P, TR};
+  relax_ring(tl, row_stage_bytes(TR, K, sizeof(TW)), S, CT);
+}
+
+// One source slice of the layout, one lane: runs [run0, run0 + nruns).
+template <typename TW>
+__global__ void __launch_bounds__(MAX_CONSUMERS + 32)
+    minplus_blocked_kernel(const int32_t* __restrict__ nbr, const TW* __restrict__ wgt,
+                           const int32_t* __restrict__ run_row,
+                           const int64_t* __restrict__ run_off, int64_t run0, int64_t nruns,
+                           const int2* __restrict__ rec, float* __restrict__ out_m,
+                           int32_t* __restrict__ out_l, int32_t* __restrict__ out_s,
+                           int64_t R, int cap, int TR, int S, int CT) {
+  const RunTiles<TW, 1> tl{nbr,   wgt,   run_row, run_off, rec, out_m, out_l,
+                           out_s, run0,  nruns,   R,       1,   1,     1,
+                           TR,    cap};
+  relax_ring(tl, run_stage_bytes(TR, cap, sizeof(TW)), S, CT);
+}
+
+// One source slice, a group of B > 1 lanes: (N, stride) records, a lane
+// pair a thread.
+template <typename TW>
+__global__ void __launch_bounds__(MAX_CONSUMERS + 32)
+    minplus_blocked_lanes_kernel(const int32_t* __restrict__ nbr, const TW* __restrict__ wgt,
+                                 const int32_t* __restrict__ run_row,
+                                 const int64_t* __restrict__ run_off, int64_t run0,
+                                 int64_t nruns, const int2* __restrict__ rec,
+                                 float* __restrict__ out_m, int32_t* __restrict__ out_l,
+                                 int32_t* __restrict__ out_s, int64_t R, int cap, int B,
+                                 int stride, int P, int TR, int S, int CT) {
+  const RunTiles<TW, 2> tl{nbr,   wgt,   run_row, run_off, rec, out_m,  out_l,
+                           out_s, run0,  nruns,   R,       B,   stride, P,
+                           TR,    cap};
+  relax_ring(tl, run_stage_bytes(TR, cap, sizeof(TW)), S, CT);
 }
 
 // The record table the resident kernels gather from: rec[u * stride + b] =
@@ -409,83 +601,20 @@ __global__ void pack_records_kernel(const TD* __restrict__ dist,
   }
 }
 
-template <typename TD, typename TW>
-__global__ void minplus_blocked_kernel(const int32_t* __restrict__ nbr,
-                                       const TW* __restrict__ wgt,
-                                       const TD* __restrict__ dist,
-                                       const int32_t* __restrict__ lab,
-                                       float* __restrict__ out_m,
-                                       int32_t* __restrict__ out_l,
-                                       int32_t* __restrict__ out_s, int64_t R, int K,
-                                       int64_t N, int SB) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int32_t* s_lab = reinterpret_cast<int32_t*>(smem);
-  TD* s_dist = reinterpret_cast<TD*>(smem + (size_t)SB * sizeof(int32_t));
-  // query lane blockIdx.y: its own (N,) dist/lab and (R,) outputs
-  dist += (int64_t)blockIdx.y * N;
-  lab += (int64_t)blockIdx.y * N;
-  out_m += (int64_t)blockIdx.y * R;
-  out_l += (int64_t)blockIdx.y * R;
-  out_s += (int64_t)blockIdx.y * R;
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = r < R;
-  const int64_t base = r * (int64_t)K;
-  float bd = INFINITY;
-  int32_t bl = IMAX, bs = IMAX;
-  for (int64_t s0 = 0; s0 < N; s0 += SB) {
-    const int len = (int)(N - s0 < SB ? N - s0 : SB);
-    __syncthreads();  // every thread is done with the previous slice
-    for (int i = threadIdx.x; i < len; i += blockDim.x) {
-      s_dist[i] = dist[s0 + i];
-      s_lab[i] = lab[s0 + i];
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < K; ++j) {
-      const int64_t idx = (int64_t)__ldg(nbr + base + j) - s0;
-      if (idx < 0 || idx >= len) continue;  // neighbor outside this slice
-      const float w = to_f32(__ldg(wgt + base + j));
-      if (isinf(w)) continue;
-      const float c = __fadd_rn(to_f32(s_dist[idx]), w);
-      if (!isfinite(c)) continue;
-      const int32_t l = s_lab[idx];
-      const int32_t u = (int32_t)(s0 + idx);
-      if (lex_less(c, l, u, bd, bl, bs)) {
-        bd = c;
-        bl = l;
-        bs = u;
-      }
-    }
-  }
-  if (live) {
-    out_m[r] = bd;
-    out_l[r] = bl;
-    out_s[r] = bs;
-  }
-}
-
 // ---- host side
 
-// Tile rows, stages and consumer threads of a resident launch.  A tile
-// holds about ``block_rows`` (row, lane group) items, rounded to a
-// multiple of 8 rows (16-byte aligned bulk copies); the ring takes
-// RING_BUDGET bytes (2..4 stages) unless two stages need more.  Rows too
-// wide for two stages of 8 rows in shared memory (K above ~1800 in f32,
-// ~2400 in bf16) get no ring (S = 0): the kernel reads them in place.
+// Stages and consumer threads of a launch whose tiles hold TR rows or runs
+// of P lane groups each, in stages of ``stage`` bytes: the ring takes
+// RING_BUDGET bytes (2..4 stages) unless two stages need more; if two do
+// not fit in shared memory, no ring (S = 0): the kernel reads in place.
 struct TilePlan {
   int TR, S, CT;
   size_t smem;
 };
 
-TilePlan plan_tiles(int K, size_t wgt_size, int P, int block_rows) {
-  const size_t row_bytes = (size_t)(K > 0 ? K : 1) * (sizeof(int32_t) + wgt_size);
-  int TR = (block_rows / P) & ~7;
-  if (TR < 8) TR = 8;
+TilePlan ring_plan(int TR, int P, size_t stage) {
   int S = 0;
-  size_t stage = 0;
-  if (SMEM_HEADER + 2 * 8 * row_bytes <= MAX_SMEM) {
-    while (TR > 8 && SMEM_HEADER + 2 * TR * row_bytes > MAX_SMEM) TR = ((TR / 2) + 7) & ~7;
-    stage = TR * row_bytes;
+  if (SMEM_HEADER + 2 * stage <= MAX_SMEM) {
     S = (int)(RING_BUDGET / stage);
     if (S < 2) S = 2;
     if (S > MAX_STAGES) S = MAX_STAGES;
@@ -495,8 +624,20 @@ TilePlan plan_tiles(int K, size_t wgt_size, int P, int block_rows) {
   return TilePlan{TR, S, CT, S ? SMEM_HEADER + S * stage : 0};
 }
 
+// A resident launch: a tile holds about ``block_rows`` (row, lane group)
+// items, rounded to a multiple of 8 rows (16-byte aligned bulk copies), and
+// halved until two stages fit.  Rows too wide for two stages of 8 (K above
+// ~1800 in f32, ~2400 in bf16) get no ring.
+TilePlan plan_tiles(int K, size_t wgt_size, int P, int block_rows) {
+  int TR = (block_rows / P) & ~7;
+  if (TR < 8) TR = 8;
+  while (TR > 8 && SMEM_HEADER + 2 * row_stage_bytes(TR, K, wgt_size) > MAX_SMEM)
+    TR = ((TR / 2) + 7) & ~7;
+  return ring_plan(TR, P, row_stage_bytes(TR, K, wgt_size));
+}
+
 // Launches ``kernel`` persistent: as many blocks as fit on the card at
-// once, at most one a tile.
+// once, at most one a tile of ``R`` rows or runs.
 template <typename Kernel, typename... Args>
 cudaError_t launch_persistent(Kernel kernel, int device, int64_t R, const TilePlan& pl,
                               cudaStream_t stream, Args... args) {
@@ -555,25 +696,38 @@ cudaError_t run_pack(int device, const void* dist, const void* lab, void* rec, i
   return cudaGetLastError();
 }
 
-template <typename TD, typename TW>
-cudaError_t run_blocked(const void* nbr, const void* wgt, const void* dist, const void* lab,
-                        void* out_m, void* out_l, void* out_s, int64_t R, int K, int64_t N,
-                        int SB, int B, int rows_per_block, cudaStream_t stream) {
-  const size_t smem = (size_t)SB * (sizeof(int32_t) + sizeof(TD));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        minplus_blocked_kernel<TD, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
+// One source slice, runs [run0, run0 + nruns) of the layout, for B lanes
+// over (N, stride) records, in tiles of TR runs whose aligned slot spans
+// hold at most ``cap`` slots.  One lane (stride 1) launches the single
+// kernel.
+template <typename TW>
+cudaError_t run_blocked(int device, const void* nbr, const void* wgt, const void* run_row,
+                        const void* run_off, int64_t run0, int64_t nruns, int TR, int cap,
+                        const void* rec, void* out_m, void* out_l, void* out_s, int64_t R,
+                        int B, int stride, cudaStream_t stream) {
+  if (nruns == 0) return cudaSuccess;
+  if (TR < 8 || TR % 8 != 0 || cap < 0 || cap % 8 != 0) return cudaErrorInvalidValue;
+  const int32_t* n = static_cast<const int32_t*>(nbr);
+  const TW* w = static_cast<const TW*>(wgt);
+  const int32_t* rr = static_cast<const int32_t*>(run_row);
+  const int64_t* ro = static_cast<const int64_t*>(run_off);
+  const int2* r = static_cast<const int2*>(rec);
+  float* om = static_cast<float*>(out_m);
+  int32_t* ol = static_cast<int32_t*>(out_l);
+  int32_t* os = static_cast<int32_t*>(out_s);
+  const size_t stage = run_stage_bytes(TR, cap, sizeof(TW));
+  if (B == 1) {
+    if (stride != 1) return cudaErrorInvalidValue;
+    const TilePlan pl = ring_plan(TR, 1, stage);
+    return launch_persistent(minplus_blocked_kernel<TW>, device, nruns, pl, stream, n, w, rr,
+                             ro, run0, nruns, r, om, ol, os, R, cap, TR, pl.S, pl.CT);
   }
-  const int64_t blocks = (R + rows_per_block - 1) / rows_per_block;
-  const dim3 grid((unsigned)blocks, (unsigned)B);
-  minplus_blocked_kernel<TD, TW><<<grid, rows_per_block, smem, stream>>>(
-      static_cast<const int32_t*>(nbr), static_cast<const TW*>(wgt),
-      static_cast<const TD*>(dist), static_cast<const int32_t*>(lab),
-      static_cast<float*>(out_m), static_cast<int32_t*>(out_l),
-      static_cast<int32_t*>(out_s), R, K, N, SB);
-  return cudaGetLastError();
+  if (stride % 2 != 0 || stride < B) return cudaErrorInvalidValue;
+  const int P = stride / 2;
+  const TilePlan pl = ring_plan(TR, P, stage);
+  return launch_persistent(minplus_blocked_lanes_kernel<TW>, device, nruns, pl, stream, n, w,
+                           rr, ro, run0, nruns, r, om, ol, os, R, cap, B, stride, P, TR, pl.S,
+                           pl.CT);
 }
 
 }  // namespace
@@ -613,27 +767,24 @@ int minplus_resident_lanes(int device, int wgt_dtype, const void* nbr, const voi
   return (int)cudaErrorInvalidValue;
 }
 
-// B query lanes (gridDim.y); B = 1 for an (N,) dist.
-int minplus_blocked(int device, int dist_dtype, int wgt_dtype, const void* nbr,
-                    const void* wgt, const void* dist, const void* lab, void* out_m,
-                    void* out_l, void* out_s, int64_t R, int K, int64_t N, int SB, int B,
-                    int rows_per_block, void* stream) {
+// One source slice of a blocked layout: runs [run0, run0 + nruns) over its
+// slots (nbr, wgt) and run table (run_row, run_off), all 16-byte aligned and
+// padded past their aligned ends (see RunTiles), in tiles of TR runs whose
+// 8-slot aligned spans hold at most ``cap`` slots; for B lanes over (N,
+// stride) records; out_*: (B, R), from the group's first lane.
+int minplus_blocked(int device, int wgt_dtype, const void* nbr, const void* wgt,
+                    const void* run_row, const void* run_off, int64_t run0, int64_t nruns,
+                    int TR, int cap, const void* rec, void* out_m, void* out_l, void* out_s,
+                    int64_t R, int B, int stride, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dist_dtype == 0 && wgt_dtype == 0)
-    return (int)run_blocked<float, float>(nbr, wgt, dist, lab, out_m, out_l, out_s, R, K, N,
-                                          SB, B, rows_per_block, st);
-  if (dist_dtype == 0 && wgt_dtype == 1)
-    return (int)run_blocked<float, __nv_bfloat16>(nbr, wgt, dist, lab, out_m, out_l, out_s, R,
-                                                  K, N, SB, B, rows_per_block, st);
-  if (dist_dtype == 1 && wgt_dtype == 0)
-    return (int)run_blocked<__nv_bfloat16, float>(nbr, wgt, dist, lab, out_m, out_l, out_s, R,
-                                                  K, N, SB, B, rows_per_block, st);
-  if (dist_dtype == 1 && wgt_dtype == 1)
-    return (int)run_blocked<__nv_bfloat16, __nv_bfloat16>(nbr, wgt, dist, lab, out_m, out_l,
-                                                          out_s, R, K, N, SB, B,
-                                                          rows_per_block, st);
+  if (wgt_dtype == 0)
+    return (int)run_blocked<float>(device, nbr, wgt, run_row, run_off, run0, nruns, TR, cap,
+                                   rec, out_m, out_l, out_s, R, B, stride, st);
+  if (wgt_dtype == 1)
+    return (int)run_blocked<__nv_bfloat16>(device, nbr, wgt, run_row, run_off, run0, nruns, TR,
+                                           cap, rec, out_m, out_l, out_s, R, B, stride, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,7 +8,8 @@ loop with one host sync a round (the "did anything improve" test).
 
 :func:`voronoi_cells_pallas_lanes` is the batch backend's loop: what
 ``jax.vmap(voronoi_cells_pallas)`` computes for a (B, S) seed batch, with
-one kernel launch a round for all B lanes and per-lane convergence masks.
+one kernel launch a round for all B lanes (with ``src_block``, one a lane
+group and source slice) and per-lane convergence masks.
 
 Not ported yet: ``voronoi_cells_pallas_frontier`` (see ROADMAP.md).
 """
@@ -28,7 +29,11 @@ from repro_torch.core.voronoi import (
     init_state,
     init_states,
 )
-from repro_torch.kernels.minplus.minplus import minplus_blocked_call, minplus_call
+from repro_torch.kernels.minplus.minplus import (
+    blocked_layout,
+    minplus_blocked_call,
+    minplus_call,
+)
 
 IMAX = torch.iinfo(torch.int32).max
 INF = float("inf")
@@ -38,16 +43,6 @@ def _cap(max_iters: Optional[int], default: int) -> int:
     # clamp to int32 range like the reference: 4n + 64 overflows int32 for
     # n >= 2**29
     return min(max_iters if max_iters is not None else default, 2**31 - 2)
-
-
-def _pad_rows(x: torch.Tensor, mult: int, fill, dim: int = 0) -> torch.Tensor:
-    """Pads axis ``dim`` of ``x`` with ``fill`` up to a multiple of ``mult``."""
-    pad = (-x.shape[dim]) % mult
-    if pad == 0:
-        return x
-    shape = list(x.shape)
-    shape[dim] = pad
-    return torch.cat([x, torch.full(shape, fill, dtype=x.dtype, device=x.device)], dim=dim)
 
 
 def lane_segments(row2v: torch.Tensor, n: int, lanes: int) -> torch.Tensor:
@@ -91,20 +86,26 @@ def _rows_to_vertices(m, ml, ms, seg, st: VoronoiState, active=None):
     return new, upd
 
 
-def _call_kernel(nbr, wgt, dist, lab, *, block_rows, src_block):
+def _call_kernel(nbr, wgt, dist, lab, *, block_rows, src_block, layout):
     """Dispatch one (rows, k) tile to the resident or source-blocked kernel.
 
-    For the blocked kernel, dist/lab are padded with the identity (+inf,
-    IMAX) to a ``src_block`` multiple, as the reference does.  dist/lab may
-    be (N,) or (B, N).
+    The reference pads dist/lab to a ``src_block`` multiple first; the
+    blocked kernel takes any N, so the port skips that (B, N) copy.
+    dist/lab may be (N,) or (B, N).
     """
     if src_block is None:
         return minplus_call(nbr, wgt, dist, lab, block_rows=block_rows)
-    dist = _pad_rows(dist, src_block, INF, dim=-1)
-    lab = _pad_rows(lab, src_block, IMAX, dim=-1)
     return minplus_blocked_call(
-        nbr, wgt, dist, lab, block_rows=block_rows, src_block=src_block
+        nbr, wgt, dist, lab, block_rows=block_rows, src_block=src_block, layout=layout
     )
+
+
+def ell_layout(ell: EllGraph, src_block: Optional[int], lanes: int = 1):
+    """The :class:`BlockedLayout` of ``ell`` for ``lanes`` query lanes; None
+    without ``src_block`` or on the CPU, whose plain path reads the ELL."""
+    if src_block is None or ell.nbr.device.type == "cpu":
+        return None
+    return blocked_layout(ell.nbr, ell.wgt, ell.n, src_block, lanes > 1)
 
 
 def relax_ell(
@@ -116,6 +117,7 @@ def relax_ell(
     interpret: Optional[bool] = None,
     seg: Optional[torch.Tensor] = None,
     active: Optional[torch.Tensor] = None,
+    layout=None,
 ) -> tuple[VoronoiState, torch.Tensor]:
     """One min-plus relaxation of the full ELL adjacency via the kernel.
 
@@ -127,13 +129,16 @@ def relax_ell(
     A state with a leading (B,) lane axis relaxes every lane in one kernel
     launch; ``seg`` then holds its :func:`lane_segments` (computed here if
     not given) and ``active`` (B,) the lanes whose state may change.
+    ``layout`` is the blocked kernel's :func:`ell_layout` (with
+    ``src_block``; built by the kernel's wrapper if not given).
 
     Returns:
       (new_state, upd): ``upd`` is the (N,) or (B, N) bool mask of vertices
       whose (dist, lab, pred) strictly improved.
     """
     m, ml, ms = _call_kernel(
-        ell.nbr, ell.wgt, st.dist, st.lab, block_rows=block_rows, src_block=src_block
+        ell.nbr, ell.wgt, st.dist, st.lab, block_rows=block_rows, src_block=src_block,
+        layout=layout,
     )
     if seg is None:
         seg = ell.row2v if st.dist.dim() == 1 else lane_segments(
@@ -157,6 +162,7 @@ def voronoi_cells_pallas(
     interpret: Optional[bool] = None,
     max_iters: Optional[int] = None,
     telemetry_rounds: int = 0,
+    layout=None,
 ) -> tuple[VoronoiState, VoronoiStats]:
     """Bellman-Ford Voronoi cells with the min-plus relaxation kernel.
 
@@ -165,20 +171,25 @@ def voronoi_cells_pallas(
     Counters and history are f32 like the reference's, so history rows
     match it bit for bit; the per-round sums are taken exactly in int64 and
     rounded once, so they do not depend on the device's summation order.
-    ``interpret`` is ignored.
+    With ``src_block``, the blocked kernel's ``layout`` (:func:`ell_layout`)
+    is built once here if not given (on the card).  ``interpret`` is ignored.
     """
     n = ell.n
     dev = ell.nbr.device
     cap = _cap(max_iters, 4 * n + 64)
     st = init_state(n, seeds)
     deg = _out_degree(ell)
+    if layout is None:
+        layout = ell_layout(ell, src_block)
     hist = torch.zeros((telemetry_rounds + 1, 4), dtype=torch.float32, device=dev)
     rlx = torch.zeros((), dtype=torch.float32, device=dev)
     msg = torch.zeros((), dtype=torch.float32, device=dev)
     it = 0
     changed = True
     while changed and it < cap:
-        st, upd = relax_ell(ell, st, block_rows=block_rows, src_block=src_block)
+        st, upd = relax_ell(
+            ell, st, block_rows=block_rows, src_block=src_block, layout=layout
+        )
         imp = upd.sum()
         dmsg = torch.where(upd, deg, 0).sum()
         _hist_write(hist, it, _round_row(imp, dmsg, imp, st.dist))
@@ -203,6 +214,7 @@ def voronoi_cells_pallas_lanes(
     interpret: Optional[bool] = None,
     max_iters: Optional[int] = None,
     telemetry_rounds: int = 0,
+    layout=None,
 ) -> tuple[VoronoiState, VoronoiStats]:
     """:func:`voronoi_cells_pallas` of every row of a (B, S) seed batch.
 
@@ -216,7 +228,8 @@ def voronoi_cells_pallas_lanes(
     is the same for each.  One host sync a round (is any lane active).
     Per-lane counters are rounded to f32 exactly as the single loop rounds
     them, so a lane equals :func:`voronoi_cells_pallas` of its row bit for
-    bit.  ``interpret`` is ignored.
+    bit.  ``layout`` as in :func:`voronoi_cells_pallas` (for B lanes).
+    ``interpret`` is ignored.
 
     Returns:
       (state, stats) with a leading (B,) axis on every array: (B, N) state,
@@ -229,6 +242,8 @@ def voronoi_cells_pallas_lanes(
     st = init_states(n, seeds)
     deg = _out_degree(ell)
     seg = lane_segments(ell.row2v, n, B)
+    if layout is None:
+        layout = ell_layout(ell, src_block, B)
     hist = torch.zeros((B, telemetry_rounds + 1, 4), dtype=torch.float32, device=dev)
     rlx = torch.zeros(B, dtype=torch.float32, device=dev)
     msg = torch.zeros(B, dtype=torch.float32, device=dev)
@@ -237,7 +252,8 @@ def voronoi_cells_pallas_lanes(
     rounds = 0
     while rounds < cap:
         st, upd = relax_ell(
-            ell, st, block_rows=block_rows, src_block=src_block, seg=seg, active=active
+            ell, st, block_rows=block_rows, src_block=src_block, seg=seg, active=active,
+            layout=layout,
         )
         imp = upd.sum(dim=1)  # 0 in the lanes that were done
         dmsg = torch.where(upd, deg, 0).sum(dim=1)

@@ -58,7 +58,8 @@ class PreparedGraph:
         return tuple(self._backend.preprocessing)
 
     def artifact(self, name: str):
-        """One preprocessing artifact by name ("graph", "ell"); None if absent."""
+        """One preprocessing artifact by name ("graph", "ell",
+        "blocked_layout"); None if absent."""
         return self._artifacts.get(name)
 
     def solve(self, seeds) -> SolveOutput:

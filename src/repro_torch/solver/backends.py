@@ -11,6 +11,10 @@ Ported so far, both with ``mode="pallas"`` only:
             one kernel launch a round for all lanes), then the tail lane by
             lane.  Every lane equals a single solve of its row bit for bit.
 
+With ``src_block`` set on the card, the blocked kernel's layout is built
+once per graph for one lane and once for a lane axis: by "single" in
+``prepare`` (kept beside the ELL view), by "batch" at its first solve.
+
 Every other (backend, mode) pair, the ``pallas_frontier`` schedule and
 graph-store inputs raise ``NotImplementedError`` (see ROADMAP.md).
 """
@@ -26,7 +30,7 @@ import torch
 from repro_torch.core import steiner as smod
 from repro_torch.core import tree as treemod
 from repro_torch.core import voronoi as vmod
-from repro_torch.core.graph import EllGraph, Graph, ell_view_cached
+from repro_torch.core.graph import EllGraph, Graph, ell_view_cached, graph_cached
 from repro_torch.kernels.minplus import ops as kops
 from repro_torch.solver.config import SolverConfig
 from repro_torch.solver.registry import (
@@ -38,6 +42,18 @@ from repro_torch.solver.registry import (
 )
 
 NOT_PORTED = "not ported yet: see ROADMAP.md"
+
+
+def blocked_layout_cached(g: Graph, cfg: SolverConfig, lanes: int = 1):
+    """The blocked kernel's layout of ``g``'s ELL view for ``lanes`` query
+    lanes, built once per graph version, src_block and ``lanes > 1`` (one
+    layout serves every batch width); None without ``src_block`` or on the
+    CPU (:func:`~repro_torch.kernels.minplus.ops.ell_layout`)."""
+    if cfg.src_block is None or g.device.type == "cpu":
+        return None
+    ell = ell_view_cached(g, cfg.ell_width)
+    return graph_cached(g, ("blocked", cfg.ell_width, cfg.src_block, lanes > 1),
+                        lambda: kops.ell_layout(ell, cfg.src_block, lanes))
 
 
 class _PallasBackend:
@@ -75,9 +91,17 @@ class _PallasBackend:
 class SingleBackend(_PallasBackend):
     """One query on one device; the min-plus kernel schedule."""
 
+    def prepare(self, cfg: SolverConfig, g, device: torch.device) -> dict:
+        """As the batch backend's, and with ``src_block`` on the card the
+        blocked kernel's layout ("blocked_layout")."""
+        art = super().prepare(cfg, g, device)
+        art["blocked_layout"] = blocked_layout_cached(art["graph"], cfg)
+        return art
+
     def solve(self, cfg, artifacts, seeds, num_seeds) -> SolveOutput:
         res = self.solve_raw(
-            cfg, artifacts["graph"], seeds, num_seeds, ell=artifacts["ell"]
+            cfg, artifacts["graph"], seeds, num_seeds, ell=artifacts["ell"],
+            layout=artifacts["blocked_layout"],
         )
         st = res.stats
         td, ne, it, rlx, msg, hist = to_host(
@@ -98,11 +122,14 @@ class SingleBackend(_PallasBackend):
         seeds,
         num_seeds: int,
         ell: Optional[EllGraph] = None,
+        layout=None,
     ) -> smod.SteinerResult:
         """Runs the pipeline on the graph's device; returns the native
         :class:`SteinerResult`."""
         if ell is None:
             ell = ell_view_cached(g, cfg.ell_width)
+        if layout is None:
+            layout = blocked_layout_cached(g, cfg)
         seeds = torch.as_tensor(seeds, dtype=torch.int32, device=g.device)
         st, stats = kops.voronoi_cells_pallas(
             ell,
@@ -111,6 +138,7 @@ class SingleBackend(_PallasBackend):
             src_block=cfg.src_block,
             max_iters=cfg.max_iters,
             telemetry_rounds=cfg.telemetry_rounds,
+            layout=layout,
         )
         return smod.finish_pipeline(g, st, stats, num_seeds, cfg.mst_algo)
 
@@ -173,6 +201,7 @@ class BatchBackend(_PallasBackend):
             src_block=cfg.src_block,
             max_iters=cfg.max_iters,
             telemetry_rounds=cfg.telemetry_rounds,
+            layout=blocked_layout_cached(g, cfg, seeds.shape[0]),
         )
         lanes = []
         for b in range(seeds.shape[0]):

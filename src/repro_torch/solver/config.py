@@ -41,10 +41,13 @@ class SolverConfig:
       ell_pad_rows: ELL row padding for graph-store inputs.
       frontier_size: top-K rows a round (frontier schedules).
       block_rows: work items of one thread block's tile (mode="pallas"):
-        ELL rows for one query, (row, lane pair) items with a lane axis;
-        with ``src_block``, the rows (one thread each) of a thread block.
-      src_block: stage dist/lab through shared memory in (src_block,)
-        slices (mode="pallas"); None gathers them straight from memory.
+        ELL rows (with ``src_block``, the layout's runs) for one query,
+        (row or run, lane pair) items with a lane axis.
+      src_block: source-blocked relaxation (mode="pallas"): each kernel
+        launch gathers dist/lab from one source slice, a whole number of
+        (src_block,) blocks sized to the card's L2, over a per-graph layout
+        of the adjacency built once; any positive int.  None gathers from
+        the whole table in one launch.
       interpret: Pallas interpreter override of the reference; accepted and
         ignored here (a CUDA kernel has no interpreter).
       pallas_frontier: top-K work-compacted kernel schedule.

@@ -18,7 +18,7 @@ from repro_torch.core.graph import from_edges
 from repro_torch.data.graphs import rmat_edges, select_seeds
 from repro_torch.kernels.minplus import minplus as tmp
 from repro_torch.kernels.minplus import ops as tops
-from repro_torch.kernels.minplus.ref import minplus_torch
+from repro_torch.kernels.minplus.ref import minplus_blocked_torch, minplus_torch
 from repro_torch.kernels.segmin import segmin as tseg
 from repro_torch.kernels.segmin.ops import segmin_bucketed
 from repro_torch.kernels.segmin.ref import segmin_bucketed_torch
@@ -62,6 +62,13 @@ def test_kernels_match_plain(cuda, shape, dtype):
         _assert_triples_equal(
             want, tmp.minplus_blocked_call(*t, block_rows=128, src_block=sb)
         )
+        # slices of one block each: one launch a slice
+        layout = tmp.blocked_layout(t[0], t[1], N, sb, budget=8 * sb)
+        n0 = tmp.minplus_blocked_call.launches
+        _assert_triples_equal(
+            want, tmp.minplus_blocked_call(*t, block_rows=128, src_block=sb, layout=layout)
+        )
+        assert tmp.minplus_blocked_call.launches == n0 + len(layout.slices)
 
 
 def test_kernel_empty_rows(cuda):
@@ -241,9 +248,13 @@ def test_batch_backend_on_card_matches_cpu(cuda, src_block):
         h = SteinerSolver(cfg, device=d).prepare(from_edges(src, dst, w, n, pad_to=8, device=d))
         kern = tmp.minplus_call if src_block is None else tmp.minplus_blocked_call
         n0 = kern.lane_launches
-        out[str(d)] = (h.solve(seeds), kern.lane_launches - n0)
-    (a, la), (b, lb) = out[str(cuda)], out["cpu"]
-    assert la == a.telemetry.iterations and lb == 0
+        out[str(d)] = (h.solve(seeds), kern.lane_launches - n0, h)
+    (a, la, hc), (b, lb, _) = out[str(cuda)], out["cpu"]
+    per_round = 1
+    if src_block is not None:  # one launch a (lane group, source slice)
+        layout = tops.ell_layout(hc.artifact("ell"), src_block, seeds.shape[0])
+        per_round = -(-seeds.shape[0] // tmp.blocked_stride(6)) * len(layout.slices)
+    assert la == a.telemetry.iterations * per_round and lb == 0
     for f in ("dist", "lab", "pred"):
         assert torch.equal(getattr(a.raw.state, f).cpu(), getattr(b.raw.state, f))
     for f in ("path_edge", "bridge_u", "bridge_v", "bridge_w", "total_distance"):
@@ -274,3 +285,123 @@ def test_server_on_card_matches_cpu(cuda):
              "cached_p50_ms", "cached_p99_ms")
     assert {k: v for k, v in sa.items() if k not in timed} == {
         k: v for k, v in sb.items() if k not in timed}
+
+
+def test_src_block_builds_the_layout_once_on_the_card(cuda):
+    """A scale-10 fixpoint with ``src_block`` builds its layout once, not a
+    round; a prepared handle builds it in ``prepare`` and never again; a
+    batch handle once for every batch width; each equals the solve without
+    ``src_block``."""
+    src, dst, w, n = rmat_edges(10, 8, max_weight=100, seed=0)
+    g = from_edges(src, dst, w, n, pad_to=8, device=cuda)
+    h0 = SteinerSolver(SolverConfig(backend="single", mode="pallas"), device=cuda).prepare(g)
+    ell = h0.artifact("ell")
+    seeds = torch.arange(0, 1024, 64, dtype=torch.int32, device=cuda)
+    b0 = tmp.blocked_layout.builds
+    st, stats = tops.voronoi_cells_pallas(ell, seeds, src_block=256)
+    assert int(stats.iterations) > 2 and tmp.blocked_layout.builds == b0 + 1
+    ref, _ = tops.voronoi_cells_pallas(ell, seeds)
+    for f in ("dist", "lab", "pred"):
+        assert torch.equal(getattr(ref, f), getattr(st, f))
+
+    b0 = tmp.blocked_layout.builds
+    cfg = SolverConfig(backend="single", mode="pallas", src_block=256)
+    h = SteinerSolver(cfg, device=cuda).prepare(g)
+    assert tmp.blocked_layout.builds == b0 + 1
+    L = h.artifact("blocked_layout")
+    assert (L.src_block, L.n, L.rows) == (256, n, ell.nbr.shape[0])
+    want = h0.solve(seeds.cpu().numpy()).total_distance
+    for _ in range(2):
+        assert h.solve(seeds.cpu().numpy()).total_distance == want
+    assert tmp.blocked_layout.builds == b0 + 1
+    assert h0.artifact("blocked_layout") is None
+
+    hb = SteinerSolver(cfg.replace(backend="batch"), device=cuda).prepare(g)
+    s = seeds.cpu().numpy()
+    for width in (3, 5, 8, 3):
+        batch = np.stack([s + i for i in range(width)])
+        out = hb.solve(batch)
+        assert out.total_distance[0] == want
+    assert tmp.blocked_layout.builds == b0 + 2
+
+
+def _lane_groups(B):
+    """Lane groups of a blocked call with B lanes (1 for an (N,) input)."""
+    return 1 if B is None else -(-B // max(1, tmp.blocked_stride(B)))
+
+
+@pytest.mark.parametrize("src_block", [16, 4096, 2**20])
+@pytest.mark.parametrize("B", [None, 1, 2, 5, 8, 17])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blocked_kernel_src_blocks(cuda, src_block, B, dtype):
+    """Small, large and larger-than-N source blocks, over several slices
+    (a budget of about 2048 vertices) and one (the default): equal to
+    the plain version and to the plain fold over the same layout; one
+    launch a (lane group, slice)."""
+    R, K, N = 1537, 32, 20000
+    t = _on(cuda, dtype, *lane_inputs(R, K, N, B, seed=src_block % 97 + (B or 0)))
+    want = minplus_torch(*t)
+    lanes = B is not None and B > 1
+    for budget in (8 * max(src_block, 2048), None):
+        layout = tmp.blocked_layout(t[0], t[1], N, src_block, lanes, budget=budget)
+        n0 = (tmp.minplus_blocked_call.launches, tmp.minplus_blocked_call.lane_launches)
+        got = tmp.minplus_blocked_call(*t, src_block=src_block, layout=layout)
+        launches = _lane_groups(B) * len(layout.slices)
+        assert tmp.minplus_blocked_call.launches == n0[0] + launches
+        assert tmp.minplus_blocked_call.lane_launches == n0[1] + (0 if B is None else launches)
+        _assert_triples_equal(want, got)
+        _assert_triples_equal(want, minplus_blocked_torch(layout, t[2], t[3]))
+    assert len(layout.slices) == 1
+
+
+@pytest.mark.parametrize("B", [None, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blocked_kernel_edge_shapes(cuda, B, dtype):
+    """All-padding rows, a source slice with no runs, rows wider than two
+    ring stages (read in place), tie-heavy and mixed-type inputs."""
+    lanes = B is not None and B > 1
+    # all-padding rows: the identity
+    R, K, N = 203, 8, 64
+    shape = (N,) if B is None else (B, N)
+    z = (torch.zeros((R, K), dtype=torch.int32, device=cuda),
+         torch.full((R, K), float("inf"), device=cuda).to(dtype),
+         torch.zeros(shape, device=cuda).to(dtype), torch.zeros(shape, dtype=torch.int32,
+                                                                  device=cuda))
+    _assert_triples_equal(minplus_torch(*z), tmp.minplus_blocked_call(*z, src_block=16))
+    # neighbors only in slices 0 and 2 of three: the middle slice has no runs
+    nbr, wgt, dist, lab = lane_inputs(500, 16, 3000, B, seed=5)
+    nbr = np.where(nbr < 1000, nbr, nbr % 1000 + 2000).astype(np.int32)
+    t = _on(cuda, dtype, nbr, wgt, dist, lab)
+    layout = tmp.blocked_layout(t[0], t[1], 3000, 1000, lanes, budget=8 * 1000)
+    assert len(layout.slices) == 2
+    _assert_triples_equal(minplus_torch(*t),
+                          tmp.minplus_blocked_call(*t, src_block=1000, layout=layout))
+    # rows too wide for two ring stages of eight runs
+    t = _on(cuda, dtype, *lane_inputs(37, 2500, 4001, B, seed=2500))
+    layout = tmp.blocked_layout(t[0], t[1], 4001, 512, lanes, budget=8 * 1024)
+    _assert_triples_equal(minplus_torch(*t),
+                          tmp.minplus_blocked_call(*t, src_block=512, layout=layout))
+    # ties, and bf16 weights over f32 distances and back
+    t = _on(cuda, dtype, *tie_inputs(1000, 32, 50, seed=3, B=B))
+    _assert_triples_equal(minplus_torch(*t), tmp.minplus_blocked_call(*t, src_block=8))
+    nbr, wgt, dist, lab = lane_inputs(500, 32, 2000, B, seed=9)
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    t = (torch.from_numpy(nbr).to(cuda), torch.from_numpy(wgt).to(cuda, dtype),
+         torch.from_numpy(dist).to(cuda, other), torch.from_numpy(lab).to(cuda))
+    layout = tmp.blocked_layout(t[0], t[1], 2000, 128, lanes, budget=8 * 256)
+    _assert_triples_equal(minplus_torch(*t),
+                          tmp.minplus_blocked_call(*t, src_block=128, layout=layout))
+
+
+def test_blocked_kernel_empty_and_foreign_layout(cuda):
+    """R = 0 launches nothing; a layout built for other inputs raises."""
+    t = _on(cuda, torch.float32, *ell_inputs(0, 4, 32, seed=0))
+    n0 = tmp.minplus_blocked_call.launches
+    m, ml, ms = tmp.minplus_blocked_call(*t, src_block=8)
+    assert m.shape == (0,) and tmp.minplus_blocked_call.launches == n0
+    t = _on(cuda, torch.float32, *ell_inputs(64, 4, 32, seed=0))
+    layout = tmp.blocked_layout(t[0], t[1], 32, 8)
+    with pytest.raises(ValueError, match="layout"):
+        tmp.minplus_blocked_call(*t, src_block=16, layout=layout)
+    with pytest.raises(ValueError, match="layout"):
+        tmp.minplus_blocked_call(t[0], t[1], t[2][:16], t[3][:16], src_block=8, layout=layout)
