@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # full width: RMAT scale 23, 1024 seeds
-    python3 chip_smoke.py --scale 18 # a shorter rehearsal of phases 6 and 7
+    python3 chip_smoke.py --scale 18 # a shorter rehearsal of phases 6 to 9
 
 Phases (any failure raises and the script exits non-zero, printing no
 result):
@@ -24,21 +24,26 @@ result):
    the same layout as well; the segment min over the sweep shapes, all
    padding, a tie-heavy case and one large shape, (NB, EB, vb) = (8192,
    2048, 256), through its public wrapper;
-3. the fixed answers of the RMAT scale-10 workload (547.0 / 44 edges /
-   10 rounds / 2638 relaxations / 45912 messages) through
-   SteinerSolver(SolverConfig(backend="single", mode="pallas")) on the card,
-   resident and with src_block=256;
-4. RMAT scale 16, 64 seeds: the solve on the card (kernels) against the same
-   solve on the CPU (plain path), bit for bit on the Voronoi state, the pair
-   tables, the MST, the tree, the counters and the per-round telemetry,
-   resident and with src_block=4096 (the blocked kernel's path, one
-   launch a round and slice);
+3. the fixed answers of the RMAT scale-10 workload (547.0 / 44 edges and
+   each schedule's rounds, relaxations and messages, SCALE10_ANSWERS)
+   through SteinerSolver(SolverConfig(backend="single", mode=...)) on the
+   card: "pallas" and "pallas" with pallas_frontier, each resident and
+   with src_block=256, "dense", "bucket" and "frontier";
+4. RMAT scale 16, 64 seeds: the solve on the card against the same solve
+   on the CPU (plain path), bit for bit on the Voronoi state, the pair
+   tables, the MST, the tree, the counters and the per-round telemetry, in
+   every single-device schedule: "pallas" resident and with src_block=4096
+   (one launch a round and slice), "dense", "bucket", "frontier" (no
+   kernel), and "pallas" with pallas_frontier (one launch a round;
+   with src_block=4096, a layout built each round);
 5. RMAT scale 16, serving: one Zipf query stream through
    SteinerServer(g, ServeConfig(mode="pallas", buckets=(8, 16, 32),
-   max_batch=8)) on the card and on the CPU, with identical results and
+   max_batch=8)) and through SteinerServer(g, ServeConfig()) (mode
+   "bucket") on the card and on the CPU, with identical results and
    non-latency counters; then one (8, 16) seed batch through the batch
-   backend with src_block=4096, card vs CPU bit for bit (blocked lane
-   launches = rounds x lane groups x slices);
+   backend with src_block=4096, in modes "dense" and "bucket", and with
+   pallas_frontier, card vs CPU bit for bit (blocked lane launches =
+   rounds x lane groups x slices; the top-K batch one launch a round);
 6. full width, the repo's lvj_1k cell cut to RMAT: prepare, one cold and 3
    warm solves with their times and a stage breakdown; launches equal to
    the rounds; the kernel equal to the plain version at the converged state;
@@ -62,7 +67,17 @@ result):
    of the blocked one with the kernel's device time a launch inside the
    loop; then phase 7's batch of eight distinct keys through the
    batch backend with src_block=4096, bit-identical to the resident batch;
-9. one JSON line with each kernel's launches on its path, its error and
+9. the other single-device schedules at full width: phase 6's graph and
+   seeds through "dense", "bucket", "frontier" (K = 8192) and "pallas"
+   with pallas_frontier (K = 131072, see TOPK_KERNEL_K; resident and
+   src_block=4096), a cold and a
+   warm solve each at phase 6's fixpoint bit for bit; rounds, counters,
+   seconds and the Voronoi stage; launches = rounds on the top-K kernel
+   path (a layout built each round with src_block); one (8192, 32) tile's
+   kernel times beside its bound and its layout build; a profiler pass
+   over the first rounds of the top-K kernel loop;
+10. a line of launches by path, then one JSON line with each kernel's
+   launches on its paths (the top-K ones of phase 9 included), its error and
    mismatches against the plain version, and its time beside its bound and
    the plain version's time (the lane kernel at the eight-key batch's
    state, at B = 1 against the single kernel, and at B = 1, 2, 4, 8 on the
@@ -71,7 +86,7 @@ result):
    kernel on the same inputs, the layout's build and its plain fold, over
    a few slice budgets and lane groups (the choice of the package's
    constants), and at its scale-16 shape);
-10. last line: {"ok": true, "device": {...}}.
+11. last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one card.
 """
@@ -535,22 +550,45 @@ def phase2_segmin(dev, tally):
     return big, launches
 
 
+# The scale-10 answers of every single-device schedule: (total distance, edges,
+# rounds, relaxations, messages).  547.0 is BENCH_steiner.json's total for
+# every mode; the counters are the JAX package's (tests/test_torch_schedules.py
+# holds both packages to them).
+SCALE10_ANSWERS = {
+    "pallas": (547.0, 44, 10, 2638, 45912),
+    "dense": (547.0, 44, 10, 2638, 45912),
+    "bucket": (547.0, 44, 17, 2550, 45677),
+    "frontier": (547.0, 44, 10, 2638, 46109),
+    "pallas_frontier": (547.0, 44, 13, 1770, 141311),
+}
+
+
+def schedule_config(name, **kw):
+    """The SolverConfig of one schedule of SCALE10_ANSWERS."""
+    from repro_torch.solver import SolverConfig
+
+    if name == "pallas_frontier":
+        return SolverConfig(backend="single", mode="pallas", pallas_frontier=True, **kw)
+    return SolverConfig(backend="single", mode=name, **kw)
+
+
 def phase3_fixed_answers(dev):
     from repro_torch.core.graph import from_edges
     from repro_torch.data.graphs import rmat_edges, select_seeds
-    from repro_torch.solver import SolverConfig, SteinerSolver
+    from repro_torch.solver import SteinerSolver
 
     src, dst, w, n = rmat_edges(10, 8, max_weight=100, seed=0)
     seeds = select_seeds(n, src, dst, 16, strategy="uniform", seed=1000)
     g = from_edges(src, dst, w, n, pad_to=8, device=dev)
-    for sb in (None, 256):
-        cfg = SolverConfig(backend="single", mode="pallas", src_block=sb)
-        out = SteinerSolver(cfg, device=dev).prepare(g).solve(seeds)
-        t = out.telemetry
-        got = (out.total_distance, out.num_edges, t.iterations, t.relaxations, t.messages)
-        log(f"phase 3: src_block={sb} -> {got}")
-        if got != (547.0, 44, 10, 2638, 45912):
-            raise AssertionError(f"scale-10 fixed answers differ: {got}")
+    for name, want in SCALE10_ANSWERS.items():
+        for sb in ((None, 256) if name.startswith("pallas") else (None,)):
+            cfg = schedule_config(name, src_block=sb)
+            out = SteinerSolver(cfg, device=dev).prepare(g).solve(seeds)
+            t = out.telemetry
+            got = (out.total_distance, out.num_edges, t.iterations, t.relaxations, t.messages)
+            log(f"phase 3: {name} src_block={sb} -> {got}")
+            if got != want:
+                raise AssertionError(f"scale-10 fixed answers of {name} differ: {got} != {want}")
 
 
 def _bitwise(a, b, what):
@@ -561,70 +599,95 @@ def _bitwise(a, b, what):
         raise AssertionError(f"{what}: card and CPU differ")
 
 
+PHASE4_RUNS = (("pallas", None), ("pallas", 4096), ("dense", None), ("bucket", None),
+               ("frontier", None), ("pallas_frontier", None), ("pallas_frontier", 4096))
+
+
 def phase4_card_vs_cpu(dev, counters):
-    """Card vs CPU at scale 16.  Fills ``counters[src_block]`` with the
-    (resident, blocked) launches of the card's solve and returns the
-    blocked solve's handle and converged state (its kernel's timing inputs)."""
+    """Card vs CPU at scale 16, every single-device schedule (PHASE4_RUNS).
+    Fills ``counters[(schedule, src_block)]`` with the (resident, blocked)
+    launches of the card's solve, checks them against its rounds, and
+    returns the blocked "pallas" solve's handle and converged state (its
+    kernel's timing inputs)."""
     from repro_torch.core import distance_graph as dgmod
     from repro_torch.core.graph import from_edges
     from repro_torch.data.graphs import rmat_edges, select_seeds
     from repro_torch.kernels.minplus import minplus as kmod
-    from repro_torch.solver import SolverConfig, SteinerSolver
+    from repro_torch.solver import SteinerSolver
 
     src, dst, w, n = rmat_edges(16, 8, max_weight=100, seed=0)
     seeds = select_seeds(n, src, dst, 64, strategy="uniform", seed=1000)
+    graphs = {str(d): from_edges(src, dst, w, n, pad_to=8, device=d) for d in (dev, "cpu")}
     out = {}
-    for sb in (None, 4096):
-        cfg = SolverConfig(backend="single", mode="pallas", src_block=sb)
+    for name, sb in PHASE4_RUNS:
+        cfg = schedule_config(name, src_block=sb)
         runs = {}
         for d in (dev, "cpu"):
-            h = SteinerSolver(cfg, device=d).prepare(
-                from_edges(src, dst, w, n, pad_to=8, device=d))
+            h = SteinerSolver(cfg, device=d).prepare(graphs[str(d)])
             if d == dev:
                 kmod.minplus_call.launches = kmod.minplus_blocked_call.launches = 0
+                b0 = kmod.blocked_layout.builds
             res, secs = timed(h.solve, seeds)
             if d == dev:
-                counters[sb] = (kmod.minplus_call.launches, kmod.minplus_blocked_call.launches)
+                counters[name, sb] = (kmod.minplus_call.launches,
+                                      kmod.minplus_blocked_call.launches)
+                builds = kmod.blocked_layout.builds - b0
             runs[str(d)] = (h, res, secs)
         (hg, rg, tg), (hc, rc, tc) = runs[str(dev)], runs["cpu"]
         a, b = rg.raw, rc.raw
+        what = f"{name} src_block={sb}"
         for f in ("dist", "lab", "pred"):
-            _bitwise(getattr(a.state, f), getattr(b.state, f), f"state.{f}")
-        for name, x, y in zip(("dmat", "umat", "vmat"),
-                              dgmod.distance_graph(hg.graph, a.state, len(seeds)),
-                              dgmod.distance_graph(hc.graph, b.state, len(seeds))):
-            _bitwise(x, y, name)
-        _bitwise(a.dmat, b.dmat, "result.dmat")
-        _bitwise(a.parent, b.parent, "parent")
+            _bitwise(getattr(a.state, f), getattr(b.state, f), f"{what} state.{f}")
+        for x_name, x, y in zip(("dmat", "umat", "vmat"),
+                                dgmod.distance_graph(hg.graph, a.state, len(seeds)),
+                                dgmod.distance_graph(hc.graph, b.state, len(seeds))):
+            _bitwise(x, y, f"{what} {x_name}")
+        _bitwise(a.dmat, b.dmat, f"{what} result.dmat")
+        _bitwise(a.parent, b.parent, f"{what} parent")
         for f in ("in_tree_vertex", "path_edge", "bridge_u", "bridge_v", "bridge_w",
                   "bridge_valid", "total_distance", "num_edges"):
-            _bitwise(getattr(a.tree, f), getattr(b.tree, f), f"tree.{f}")
+            _bitwise(getattr(a.tree, f), getattr(b.tree, f), f"{what} tree.{f}")
         for f in ("iterations", "relaxations", "messages", "history"):
-            _bitwise(getattr(a.stats, f), getattr(b.stats, f), f"stats.{f}")
+            _bitwise(getattr(a.stats, f), getattr(b.stats, f), f"{what} stats.{f}")
         ta, tb = rg.telemetry, rc.telemetry
         if (ta.iterations, ta.relaxations, ta.messages) != (
                 tb.iterations, tb.relaxations, tb.messages) or not (
                 ta.per_round == tb.per_round).all():
-            raise AssertionError("telemetry: card and CPU differ")
+            raise AssertionError(f"{what} telemetry: card and CPU differ")
         if (rg.total_distance, rg.num_edges) != (rc.total_distance, rc.num_edges):
-            raise AssertionError("solve output: card and CPU differ")
-        R = tuple(hg.artifact("ell").nbr.shape)
-        if sb is not None:
+            raise AssertionError(f"{what} solve output: card and CPU differ")
+        resident, blocked = counters[name, sb]
+        rounds = ta.iterations
+        if name == "pallas" and sb is not None:
             slices = len(hg.artifact("blocked_layout").slices)
-            if counters[sb][1] != ta.iterations * slices:
-                raise AssertionError(f"blocked launches {counters[sb][1]} != {ta.iterations} "
-                                     f"rounds x {slices} slices")
-        log(f"phase 4: scale 16 src_block={sb} ELL {R}: bit-identical; "
-            f"D={rg.total_distance} edges={rg.num_edges} rounds={ta.iterations} "
-            f"relax={ta.relaxations} msgs={ta.messages}; card {tg:.3f} s, cpu {tc:.3f} s")
-        out[sb] = (hg, a.state)
-    return out[4096]
+            ok = (resident, blocked) == (0, rounds * slices)
+        elif name == "pallas_frontier" and sb is not None:
+            # the wrapper builds each round's tile layout: a launch a slice
+            ok = resident == 0 and builds == rounds and blocked >= rounds
+        elif name.startswith("pallas"):
+            ok = (resident, blocked) == (rounds, 0)
+        else:
+            ok = (resident, blocked) == (0, 0)
+        if not ok:
+            raise AssertionError(f"{what}: launches (resident, blocked) {counters[name, sb]}, "
+                                 f"{builds} layout builds for {rounds} rounds")
+        ell = hg.artifact("ell")
+        log(f"phase 4: scale 16 {what} ELL {None if ell is None else tuple(ell.nbr.shape)}: "
+            f"bit-identical; D={rg.total_distance} edges={rg.num_edges} rounds={rounds} "
+            f"relax={ta.relaxations} msgs={ta.messages}; launches (resident, blocked) "
+            f"{counters[name, sb]}; card {tg:.3f} s, cpu {tc:.3f} s")
+        out[name, sb] = (hg, a.state)
+    return out["pallas", 4096]
 
 
 def phase5_server_card_vs_cpu(dev):
     """RMAT scale 16: the same query stream through the server on the card
-    and on the CPU, then one batch with src_block=4096 through the batch
-    backend.  Returns the lane launches of each kernel on the card."""
+    and on the CPU, in mode "pallas" and with the default ServeConfig()
+    (mode "bucket"); then one (8, 16) batch through the batch backend with
+    src_block=4096 and in modes "dense", "bucket" and "pallas" with
+    pallas_frontier, card vs CPU bit for bit.  Returns the launches of each
+    kernel on the card: the lane kernels' on the pallas stream and the
+    blocked batch, the single kernel's on the top-K batch."""
     import numpy as np
     import torch
 
@@ -635,59 +698,84 @@ def phase5_server_card_vs_cpu(dev):
     from repro_torch.solver import SolverConfig, SteinerSolver
 
     src, dst, w, n = rmat_edges(16, 8, max_weight=100, seed=0)
+    graphs = {str(d): from_edges(src, dst, w, n, pad_to=8, device=d) for d in (dev, "cpu")}
     buckets = (8, 16, 32)
     rng = np.random.default_rng(0)
     pool = build_query_pool(n, rng, 10, buckets)
     queries = [pool[i] for i in zipf_stream(rng, 10, 24, 1.1)]
-    cfg = ServeConfig(mode="pallas", buckets=buckets, max_batch=8)
-    runs, launches = {}, {}
-    for d in (dev, "cpu"):
-        srv = SteinerServer(from_edges(src, dst, w, n, pad_to=8, device=d), cfg, device=d)
-        kmod.minplus_call.lane_launches = 0
-        results, secs = serve_stream(srv, queries, 8)
-        if d == dev:
-            launches["minplus_call (lanes)"] = kmod.minplus_call.lane_launches
-        runs[str(d)] = ([(r.key, r.bucket, r.total_distance, r.num_edges, r.from_cache)
-                         for r in results], srv.stats(), secs)
-    (rg, sg, tg), (rc, sc, tc) = runs[str(dev)], runs["cpu"]
-    if rg != rc:
-        raise AssertionError("server results: card and CPU differ")
-    untimed = [{k: v for k, v in st.items() if k not in TIMED_STATS} for st in (sg, sc)]
-    if untimed[0] != untimed[1]:
-        raise AssertionError(f"server stats: card {untimed[0]} vs CPU {untimed[1]}")
-    log(f"phase 5: scale 16 server, {len(queries)} queries: card and CPU identical; "
-        f"batches {sg['batches_per_bucket']}, hits {sg['cache_hits']}; card {tg:.3f} s, "
-        f"cpu {tc:.3f} s")
+    launches = {}
+    for cfg in (ServeConfig(mode="pallas", buckets=buckets, max_batch=8), ServeConfig()):
+        runs = {}
+        for d in (dev, "cpu"):
+            srv = SteinerServer(graphs[str(d)], cfg, device=d)
+            kmod.minplus_call.launches = kmod.minplus_call.lane_launches = 0
+            kmod.minplus_blocked_call.launches = 0
+            results, secs = serve_stream(srv, queries, 8)
+            if d == dev:
+                got = (kmod.minplus_call.lane_launches, kmod.minplus_call.launches,
+                       kmod.minplus_blocked_call.launches)
+            runs[str(d)] = ([(r.key, r.bucket, r.total_distance, r.num_edges, r.from_cache)
+                             for r in results], srv.stats(), secs)
+        (rg, sg, tg), (rc, sc, tc) = runs[str(dev)], runs["cpu"]
+        if rg != rc:
+            raise AssertionError(f"server mode={cfg.mode} results: card and CPU differ")
+        untimed = [{k: v for k, v in st.items() if k not in TIMED_STATS} for st in (sg, sc)]
+        if untimed[0] != untimed[1]:
+            raise AssertionError(f"server mode={cfg.mode} stats: card {untimed[0]} vs CPU "
+                                 f"{untimed[1]}")
+        if cfg.mode == "pallas":
+            launches["minplus_call (lanes)"] = got[0]
+        elif got != (0, 0, 0):
+            raise AssertionError(f"the mode={cfg.mode} server launched kernels: {got}")
+        log(f"phase 5: scale 16 server mode={cfg.mode}, {len(queries)} queries: card and CPU "
+            f"identical; batches {sg['batches_per_bucket']}, hits {sg['cache_hits']}; lane "
+            f"launches {got[0]}; card {tg:.3f} s, cpu {tc:.3f} s")
 
     rows = np.stack([pad_seed_set(sorted(set(q))[:16], 16) for q in pool[:8]])
-    bcfg = SolverConfig(backend="batch", mode="pallas", src_block=4096)
-    outs = {}
-    for d in (dev, "cpu"):
-        h = SteinerSolver(bcfg, device=d).prepare(from_edges(src, dst, w, n, pad_to=8, device=d))
-        kmod.minplus_blocked_call.lane_launches = 0
-        outs[str(d)] = h.solve(rows)
-        if d == dev:
-            launches["minplus_blocked_call (lanes)"] = kmod.minplus_blocked_call.lane_launches
-            per_round = blocked_launches_per_call(h, len(rows))
-    a, b = outs[str(dev)], outs["cpu"]
-    if launches["minplus_blocked_call (lanes)"] != a.telemetry.iterations * per_round:
-        raise AssertionError(f"blocked lane launches {launches['minplus_blocked_call (lanes)']} "
-                             f"!= rounds {a.telemetry.iterations} x {per_round}")
-    for part, fields in (("state", ("dist", "lab", "pred")),
-                         ("tree", ("in_tree_vertex", "path_edge", "bridge_u", "bridge_v",
-                                   "bridge_w", "bridge_valid", "total_distance", "num_edges")),
-                         ("stats", ("iterations", "relaxations", "messages", "history"))):
-        for f in fields:
-            _bitwise(getattr(getattr(a.raw, part), f), getattr(getattr(b.raw, part), f),
-                     f"batch {part}.{f}")
-    _bitwise(a.raw.parent, b.raw.parent, "batch parent")
-    _bitwise(a.raw.dmat, b.raw.dmat, "batch dmat")
-    if not (torch.equal(torch.from_numpy(a.total_distance), torch.from_numpy(b.total_distance))
-            and a.telemetry.relaxations == b.telemetry.relaxations):
-        raise AssertionError("batch solve output: card and CPU differ")
-    log(f"phase 5: scale 16 batch (8, 16) src_block=4096: bit-identical; rounds "
-        f"{a.raw.stats.iterations.tolist()}, {launches['minplus_blocked_call (lanes)']} blocked "
-        f"lane launches")
+    for kw in (dict(mode="pallas", src_block=4096), dict(mode="dense"), dict(mode="bucket"),
+               dict(mode="pallas", pallas_frontier=True)):
+        bcfg = SolverConfig(backend="batch", **kw)
+        outs, secs = {}, {}
+        for d in (dev, "cpu"):
+            h = SteinerSolver(bcfg, device=d).prepare(graphs[str(d)])
+            kmod.minplus_call.launches = kmod.minplus_call.lane_launches = 0
+            kmod.minplus_blocked_call.launches = kmod.minplus_blocked_call.lane_launches = 0
+            outs[str(d)], secs[str(d)] = timed(h.solve, rows)
+            if d == dev:
+                got = (kmod.minplus_call.launches, kmod.minplus_call.lane_launches,
+                       kmod.minplus_blocked_call.launches, kmod.minplus_blocked_call.lane_launches)
+                if kw.get("src_block"):
+                    per_round = blocked_launches_per_call(h, len(rows))
+        a, b = outs[str(dev)], outs["cpu"]
+        rounds = a.telemetry.iterations
+        if kw.get("src_block"):
+            launches["minplus_blocked_call (lanes)"] = got[3]
+            ok = got == (0, 0, rounds * per_round, rounds * per_round)
+        elif kw.get("pallas_frontier"):
+            # every active lane's rows in one single-query launch a round
+            launches["minplus_call (top-K batch)"] = got[0]
+            ok = got == (rounds, 0, 0, 0)
+        else:
+            ok = got == (0, 0, 0, 0)
+        if not ok:
+            raise AssertionError(f"batch {kw}: launches (resident, lanes, blocked, blocked "
+                                 f"lanes) {got} for {rounds} rounds")
+        for part, fields in RAW_FIELDS:
+            for f in fields:
+                _bitwise(getattr(getattr(a.raw, part), f), getattr(getattr(b.raw, part), f),
+                         f"batch {kw} {part}.{f}")
+        _bitwise(a.raw.parent, b.raw.parent, f"batch {kw} parent")
+        _bitwise(a.raw.dmat, b.raw.dmat, f"batch {kw} dmat")
+        ta, tb = a.telemetry, b.telemetry
+        if not (torch.equal(torch.from_numpy(a.total_distance),
+                            torch.from_numpy(b.total_distance))
+                and (ta.iterations, ta.relaxations, ta.messages) == (
+                    tb.iterations, tb.relaxations, tb.messages)
+                and (ta.per_round == tb.per_round).all()):
+            raise AssertionError(f"batch {kw} solve output: card and CPU differ")
+        log(f"phase 5: scale 16 batch (8, 16) {kw}: bit-identical; lane rounds "
+            f"{a.raw.stats.iterations.tolist()}; launches (resident, lanes, blocked, blocked "
+            f"lanes) {got}; card {secs[str(dev)]:.3f} s, cpu {secs['cpu']:.3f} s")
     return launches
 
 
@@ -939,6 +1027,182 @@ def phase8_blocked_full_width(dev, h, single_in, batch_in):
         f"launches = {outb.telemetry.iterations} rounds x {per_round}; "
         f"{kmod.blocked_layout.builds - b0} layout builds")
     return rec, hb, launches, lane_launches
+
+
+FULL_WIDTH_K = 8192  # frontier_size of the repo's mesh_frontier preset
+# frontier_size of the top-K kernel schedule at full width: at K = 8192 it
+# needs 62,848 rounds here (~4 min a solve; PERF.md), so its four solves
+# run at the smallest power of two that keeps the phase near 90 s
+# (--topk-kernel-k 8192 runs them at 8192)
+TOPK_KERNEL_K = 131072
+FULL_WIDTH_RUNS = (("dense", None), ("bucket", None), ("frontier", None),
+                   ("pallas_frontier", None), ("pallas_frontier", 4096))
+PROFILE_ROUNDS = 400  # the window of the top-K kernel loop under the profiler
+
+
+def same_fixpoint(a, b, what):
+    """Two SteinerResults with the same Voronoi state, MST and tree."""
+    for part, fields in RAW_FIELDS[:2]:
+        for f in fields:
+            if not torch_equal(getattr(getattr(a, part), f), getattr(getattr(b, part), f)):
+                raise AssertionError(f"{what}: {part}.{f} differs")
+    for f in ("parent", "dmat"):
+        if not torch_equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def frontier_tile(dev, ell, st, tally, K):
+    """One (K, k) tile of ELL rows (drawn uniformly, seed 0)
+    against the full-width fixpoint, as the top-K schedules hand it to the
+    kernels: both kernels against the plain version, their times beside the
+    tile's bound, the record packing alone (a full (N,) table every call),
+    and the blocked kernel's layout build, which its wrapper repeats every
+    round of a top-K solve with src_block."""
+    import torch
+
+    from repro_torch.kernels.minplus import minplus as kmod
+    from repro_torch.kernels.minplus.ref import minplus_torch
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    rows = torch.randperm(ell.nbr.shape[0], generator=gen)[:K].to(dev)
+    tnbr, twgt = ell.nbr[rows], ell.wgt[rows]
+    K, k = tnbr.shape
+    N = st.dist.shape[0]
+    args = (tnbr, twgt, st.dist, st.lab)
+    want = minplus_torch(*args)
+    tally["minplus_call"].compare(kmod.minplus_call(*args), want, "frontier tile")
+    tally["minplus_blocked_call"].compare(
+        kmod.minplus_blocked_call(*args, src_block=4096), want, "frontier tile, blocked")
+    live = torch.isfinite(twgt)
+    slots, nbrs = int(live.sum()), int(tnbr[live].unique().numel())
+    # each slot (id and weight) read once, the dist and lab of each distinct
+    # neighbor once, the (K,) output triple written once
+    nbytes = K * k * 8 + nbrs * 8 + K * 12
+    lay = kmod.blocked_layout(tnbr, twgt, N, 4096)
+    return dict(
+        shape=[K, k, N], live_slots=slots, distinct_neighbors=nbrs,
+        ms=event_ms(lambda: kmod.minplus_call(*args), 20),
+        pack_ms=event_ms(lambda: kmod.pack_records(st.dist, st.lab), 20),
+        plain_ms=event_ms(lambda: minplus_torch(*args), 5),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        blocked_ms=event_ms(lambda: kmod.minplus_blocked_call(*args, src_block=4096), 10),
+        blocked_slices=len(lay.slices),
+        blocked_prebuilt_ms=event_ms(
+            lambda: kmod.minplus_blocked_call(*args, src_block=4096, layout=lay), 20),
+        layout_build_ms=event_ms(lambda: kmod.blocked_layout(tnbr, twgt, N, 4096), 10))
+
+
+def stage(name, cfg, handle, sd):
+    """The Voronoi stage alone of a "dense", "bucket" or "frontier" solve."""
+    from repro_torch.core import voronoi as vmod
+
+    if name == "frontier":
+        return vmod.voronoi_cells_frontier(
+            handle.artifact("ell"), sd, frontier_size=cfg.frontier_size,
+            max_rounds=cfg.max_iters, telemetry_rounds=cfg.telemetry_rounds)
+    return vmod.voronoi_cells(handle.graph, sd, mode=name, delta=cfg.delta,
+                              max_iters=cfg.max_iters, telemetry_rounds=cfg.telemetry_rounds)
+
+
+def phase9_schedules_full_width(dev, h, single_in, tally, topk_k=TOPK_KERNEL_K):
+    """Phase 6's graph and seeds through every other single-device schedule
+    (FULL_WIDTH_RUNS; the frontier at K = FULL_WIDTH_K, the top-K kernel
+    schedule at K = ``topk_k``): a cold and a
+    warm solve each, both at phase 6's fixpoint bit for bit (state, MST,
+    tree); rounds, counters, seconds and the Voronoi stage (the warm solve
+    less its tail, timed alone on the same state); kernel launches against
+    the rounds; a (K, 32) tile's times; a profiler pass over the first
+    PROFILE_ROUNDS rounds of the resident top-K loop.  Returns the record
+    and the kernels' launches by path."""
+    import math
+
+    from repro_torch.core import steiner as smod
+    from repro_torch.kernels.minplus import minplus as kmod
+    from repro_torch.kernels.minplus import ops as kops
+    from repro_torch.solver import SteinerSolver
+
+    seeds, ref = single_in
+    g, S = h.graph, len(seeds)
+    rec, launches = {}, {}
+    t_phase = time.perf_counter()
+    for name, sb in FULL_WIDTH_RUNS:
+        # the top-K kernel schedule needs more than phase 6's 10,000 rounds
+        # at this width (its cap is then the schedule's own, 16n + 64)
+        max_iters = None if name == "pallas_frontier" else h.config.max_iters
+        K = topk_k if name == "pallas_frontier" else FULL_WIDTH_K
+        cfg = schedule_config(name, src_block=sb, ell_width=h.config.ell_width,
+                              max_iters=max_iters, frontier_size=K)
+        hs, prep_s = timed(lambda: SteinerSolver(cfg, device=dev).prepare(g))
+        kmod.minplus_call.launches = kmod.minplus_blocked_call.launches = 0
+        b0 = kmod.blocked_layout.builds
+        cold, cold_s = timed(hs.solve, seeds)
+        warm, warm_s = timed(hs.solve, seeds)
+        got = (kmod.minplus_call.launches, kmod.minplus_blocked_call.launches)
+        builds = kmod.blocked_layout.builds - b0
+        what = f"{name} src_block={sb}"
+        t, tw = cold.telemetry, warm.telemetry
+        if (t.iterations, t.relaxations, t.messages) != (
+                tw.iterations, tw.relaxations, tw.messages) or not (
+                t.per_round == tw.per_round).all():
+            raise AssertionError(f"{what}: the warm solve's telemetry differs from the cold's")
+        for o, when in ((cold, "cold"), (warm, "warm")):
+            same_fixpoint(o.raw, ref.raw, f"{what} {when} solve vs phase 6's fixpoint")
+        rounds = t.iterations
+        if max_iters is not None and rounds >= max_iters:
+            raise AssertionError(f"{what}: {rounds} rounds reach the cap {max_iters}")
+        if name == "pallas_frontier" and sb is not None:
+            most = math.ceil(g.n / kmod.slice_width(g.n, sb, kmod.L2_BUDGET))
+            ok = got[0] == 0 and builds == 2 * rounds and 2 * rounds <= got[1] <= 2 * rounds * most
+            launches[f"minplus_blocked_call ({name})"] = got[1]
+        elif name == "pallas_frontier":
+            ok = got == (2 * rounds, 0)
+            launches[f"minplus_call ({name})"] = got[0]
+        else:
+            ok = got == (0, 0)
+        if not ok:
+            raise AssertionError(f"{what}: launches (resident, blocked) {got}, {builds} layout "
+                                 f"builds for 2 x {rounds} rounds")
+        _, tail_s = timed(smod.finish_pipeline, g, warm.raw.state, warm.raw.stats, S)
+        if name == "pallas_frontier":
+            # the warm solve less its tail (the stage is ~100x the tail here;
+            # a third run would double the phase)
+            voronoi_s, how = warm_s - tail_s, "the warm solve less its tail"
+        else:
+            _, voronoi_s = timed(stage, name, cfg, hs, seeds_dev(seeds, dev))
+            how = "timed alone"
+        key = name if sb is None else f"{name} src_block={sb}"
+        rec[key] = dict(K=K, max_iters=max_iters, prepare_s=prep_s, cold_solve_s=cold_s,
+                        warm_solve_s=warm_s, tail_s=tail_s, voronoi_s=voronoi_s,
+                        voronoi_how=how, iterations=rounds, relaxations=t.relaxations,
+                        messages=t.messages, launches=got, layout_builds=builds)
+        log(f"phase 9: {what} (K={K}, max_iters={max_iters}): phase 6's fixpoint "
+            f"bit for bit; rounds={rounds} relax={t.relaxations} msgs={t.messages}; cold "
+            f"{cold_s:.3f} s, warm {warm_s:.3f} s; tail {tail_s:.3f} s; Voronoi stage "
+            f"{voronoi_s:.3f} s ({how}; {voronoi_s / rounds * 1e3:.3f} ms a round); launches "
+            f"(resident, blocked) {got}, layout builds {builds}")
+        del hs, cold, warm
+    ell, st = h.artifact("ell"), ref.raw.state
+    for K in (FULL_WIDTH_K, topk_k):
+        rec[f"tile_{K}"] = frontier_tile(dev, ell, st, tally, K)
+        log(f"phase 9: a ({K}, {ell.nbr.shape[1]}) tile: {json.dumps(rec[f'tile_{K}'])}")
+    sd = seeds_dev(seeds, dev)
+
+    def window():
+        return kops.voronoi_cells_pallas_frontier(ell, sd, frontier_size=topk_k,
+                                                  max_iters=PROFILE_ROUNDS)
+
+    _, wall = timed(window)
+    prof = device_profile(window, wall)
+    rec["profile"] = dict(rounds=PROFILE_ROUNDS, wall_s=wall, **prof)
+    log(f"phase 9: the first {PROFILE_ROUNDS} rounds of the top-K kernel loop (K={topk_k}): "
+        f"{wall:.3f} s, "
+        f"device busy {prof['busy_share']:.3f}; top device time (ms): "
+        f"{json.dumps(prof['top_device_ms'])}; in-loop device ms a launch "
+        f"{json.dumps(prof['minplus_ms_per_launch'])} over "
+        f"{json.dumps(prof['minplus_launches'])} launches")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 9: {rec['phase_s']:.1f} s")
+    return rec, launches
 
 
 def phase7_serving(dev, h):
@@ -1224,6 +1488,8 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=int, default=23, help="RMAT scale of phases 6 and 7")
     ap.add_argument("--seeds", type=int, default=1024, help="seeds of phase 6")
     ap.add_argument("--json", default=None, help="also write the record to this file")
+    ap.add_argument("--topk-kernel-k", type=int, default=TOPK_KERNEL_K,
+                    help="frontier_size of the top-K kernel schedule in phase 9")
     args = ap.parse_args(argv)
 
     import torch
@@ -1273,10 +1539,10 @@ def main(argv=None) -> int:
     # ---- phase 4 (the blocked kernel's single-query path)
     counters = {}
     blocked16 = phase4_card_vs_cpu(dev, counters)
-    if counters[None][0] == 0 or counters[None][1] != 0:
-        raise AssertionError(f"resident solve launched {counters[None]}")
-    if counters[4096][1] == 0 or counters[4096][0] != 0:
-        raise AssertionError(f"blocked solve launched {counters[4096]}")
+    if counters["pallas", None][0] == 0 or counters["pallas", None][1] != 0:
+        raise AssertionError(f"resident solve launched {counters['pallas', None]}")
+    if counters["pallas", 4096][1] == 0 or counters["pallas", 4096][0] != 0:
+        raise AssertionError(f"blocked solve launched {counters['pallas', 4096]}")
     done("4")
     # ---- phase 5 (both lane kernels' serving path at scale 16)
     lanes16 = phase5_server_card_vs_cpu(dev)
@@ -1294,20 +1560,33 @@ def main(argv=None) -> int:
     # ---- phase 8 (the blocked kernels' main path, full width)
     blocked_rec, hb, blocked_launches, blocked_lane_launches = phase8_blocked_full_width(
         dev, h, single_in, lanes_in)
-    del single_in
     done("8")
+    # ---- phase 9 (the other schedules and the top-K kernel path, full width)
+    sched_rec, sched_launches = phase9_schedules_full_width(dev, h, single_in, tally,
+                                                            args.topk_kernel_k)
+    del single_in
+    done("9")
     times = kernel_times(dev, h.artifact("ell"), st, {"full": hb, "scale16": blocked16},
                          lanes_in, seg_in, tally)
-    done("9")
+    done("10")
     log(f"kernel times: {json.dumps(times)}")
     log("tolerance: exact (every output of every kernel equals the plain version's; "
         + ", ".join(f"{k}: {t.cases} cases, {t.mismatches} mismatches"
                     for k, t in tally.items()) + ")")
 
-    # ---- phase 9
-    launches = {"minplus_call": rec["launches_per_solve"] * 4,
+    # ---- phase 10
+    by_path = {"minplus_call (pallas, phase 6)": rec["launches_per_solve"] * 4,
+               "minplus_call (lanes, phase 7)": lane_launches,
+               "minplus_blocked_call (pallas, phase 8)": blocked_launches,
+               "minplus_blocked_call (lanes, phase 8)": blocked_lane_launches,
+               "segmin_bucketed_call (phase 2)": seg_launches,
+               **{f"{k[:-1]}, phase 9)": v for k, v in sched_launches.items()}}
+    log(f"launches by path: {json.dumps(by_path)}")
+    launches = {"minplus_call": rec["launches_per_solve"] * 4
+                + sched_launches["minplus_call (pallas_frontier)"],
                 "minplus_call (lanes)": lane_launches,
-                "minplus_blocked_call": blocked_launches,
+                "minplus_blocked_call": blocked_launches
+                + sched_launches["minplus_blocked_call (pallas_frontier)"],
                 "minplus_blocked_call (lanes)": blocked_lane_launches,
                 "segmin_bucketed_call": seg_launches}
     minplus_src = "src/repro_torch/kernels/minplus/csrc/minplus.cu"
@@ -1337,11 +1616,12 @@ def main(argv=None) -> int:
         Path(args.json).write_text(json.dumps(
             {"device": smi, "torch": torch.__version__, "build_s": build_s, "ptxas": ptxas,
              "full_width": rec, "serving": serve_rec, "blocked_full_width": blocked_rec,
-             "scale16_lane_launches": lanes16,
+             "schedules_full_width": sched_rec, "scale16_lane_launches": lanes16,
+             "launches_by_path": by_path,
              "kernel_times": times, "kernels": kernels, "seconds": total_s}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
-    # ---- phase 10
+    # ---- phase 11
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -18,9 +18,10 @@ convert    numpy arrays of the JAX package -> this package's objects
 
 Entry points run on the GPU unless the caller asks for ``device="cpu"``.
 A CUDA tensor given to a kernel wrapper launches the kernel or raises; a CPU
-tensor takes the plain PyTorch version.  Only ``mode="pallas"`` is ported
-so far, for ``backend="single"`` and ``backend="batch"`` (see ROADMAP.md for
-the rest).
+tensor takes the plain PyTorch version.  Every single-device schedule of
+the reference runs, for ``backend="single"`` and ``backend="batch"``; the
+mesh backends, Boruvka, graph stores and deltas are not ported yet (see
+ROADMAP.md).
 """
 
 __version__ = "0.1.0"

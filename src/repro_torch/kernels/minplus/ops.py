@@ -11,7 +11,12 @@ loop with one host sync a round (the "did anything improve" test).
 one kernel launch a round for all B lanes (with ``src_block``, one a lane
 group and source slice) and per-lane convergence masks.
 
-Not ported yet: ``voronoi_cells_pallas_frontier`` (see ROADMAP.md).
+:func:`voronoi_cells_pallas_frontier` is the work-compacted schedule
+(``pallas_frontier=True``): each round the K highest-priority dirty ELL
+rows (:func:`~repro_torch.core.voronoi.smallest_k`) are gathered into a
+(K, k) tile that the kernel relaxes.  Its batch counterpart,
+:func:`voronoi_cells_pallas_frontier_lanes`, gathers every active lane's K
+rows into one tile and launches the kernel once a round.
 """
 
 from __future__ import annotations
@@ -24,10 +29,14 @@ from repro_torch.core.graph import EllGraph, segment_min
 from repro_torch.core.voronoi import (
     VoronoiState,
     VoronoiStats,
+    _cap,
     _hist_write,
     _round_row,
+    _stats,
     init_state,
     init_states,
+    lex_update,
+    smallest_k,
 )
 from repro_torch.kernels.minplus.minplus import (
     blocked_layout,
@@ -39,51 +48,11 @@ IMAX = torch.iinfo(torch.int32).max
 INF = float("inf")
 
 
-def _cap(max_iters: Optional[int], default: int) -> int:
-    # clamp to int32 range like the reference: 4n + 64 overflows int32 for
-    # n >= 2**29
-    return min(max_iters if max_iters is not None else default, 2**31 - 2)
-
-
 def lane_segments(row2v: torch.Tensor, n: int, lanes: int) -> torch.Tensor:
     """Flat vertex ids ``row2v + lane * n`` of the (lanes, R) kernel output,
     in int64 (lanes * n passes 2**31 on large graphs)."""
     offs = torch.arange(lanes, dtype=torch.int64, device=row2v.device)[:, None] * n
     return (row2v.to(torch.int64) + offs).reshape(-1)
-
-
-def _rows_to_vertices(m, ml, ms, seg, st: VoronoiState, active=None):
-    """Reduces per-row lexicographic minima to per-vertex state updates.
-
-    Split high-degree rows recombine lexicographically; ``upd`` is the
-    strict-improvement mask over (dist, lab, pred).  ``seg`` maps each row
-    to its vertex; with a lane axis (m (B, R), state (B, N)) it holds the
-    flat ids of :func:`lane_segments`, so one reduction serves every lane.
-    ``active`` (B,) keeps the state of the lanes it marks False.
-    """
-    nseg = st.dist.numel()
-    m, ml, ms = m.reshape(-1), ml.reshape(-1), ms.reshape(-1)
-    mv = segment_min(m, seg, nseg, INF)
-    e1 = m == mv[seg]
-    mlv = segment_min(torch.where(e1, ml, IMAX), seg, nseg, IMAX)
-    e2 = e1 & (ml == mlv[seg])
-    msv = segment_min(torch.where(e2, ms, IMAX), seg, nseg, IMAX)
-    shape = st.dist.shape
-    mv, mlv, msv = mv.view(shape), mlv.view(shape), msv.view(shape)
-    same = mv == st.dist
-    upd = torch.isfinite(mv) & (
-        (mv < st.dist)
-        | (same & (mlv < st.lab))
-        | (same & (mlv == st.lab) & (msv < st.pred))
-    )
-    if active is not None:
-        upd &= active[:, None]
-    new = VoronoiState(
-        dist=torch.where(upd, mv, st.dist),
-        lab=torch.where(upd, mlv, st.lab),
-        pred=torch.where(upd, msv, st.pred),
-    )
-    return new, upd
 
 
 def _call_kernel(nbr, wgt, dist, lab, *, block_rows, src_block, layout):
@@ -143,7 +112,7 @@ def relax_ell(
     if seg is None:
         seg = ell.row2v if st.dist.dim() == 1 else lane_segments(
             ell.row2v, ell.n, st.dist.shape[0])
-    return _rows_to_vertices(m, ml, ms, seg, st, active)
+    return lex_update(m, ml, ms, seg, st, active)
 
 
 def _out_degree(ell: EllGraph) -> torch.Tensor:
@@ -197,12 +166,7 @@ def voronoi_cells_pallas(
         msg += dmsg.to(torch.float32)
         it += 1
         changed = bool(imp)  # the round's one host sync
-    return st, VoronoiStats(
-        iterations=torch.tensor(it, dtype=torch.int32, device=dev),
-        relaxations=rlx,
-        messages=msg,
-        history=hist if telemetry_rounds > 0 else None,
-    )
+    return st, _stats(it, rlx, msg, hist, telemetry_rounds)
 
 
 def voronoi_cells_pallas_lanes(
@@ -268,6 +232,205 @@ def voronoi_cells_pallas_lanes(
         rounds += 1
         if not bool(active.any()):  # the round's one host sync
             break
+    return st, VoronoiStats(
+        iterations=it,
+        relaxations=rlx,
+        messages=msg,
+        history=hist if telemetry_rounds > 0 else None,
+    )
+
+
+def voronoi_cells_pallas_frontier(
+    ell: EllGraph,
+    seeds: torch.Tensor,
+    *,
+    frontier_size: int = 1024,
+    block_rows: int = 256,
+    src_block: Optional[int] = None,
+    interpret: Optional[bool] = None,
+    max_iters: Optional[int] = None,
+    telemetry_rounds: int = 0,
+) -> tuple[VoronoiState, VoronoiStats]:
+    """Top-K compacted Voronoi cells over gathered kernel tiles.
+
+    Each round touches only the K highest-priority dirty ELL rows, pulled
+    through the min-plus kernel as one (K, k) tile.  Two per-row flags
+    drive the schedule, as in the reference:
+
+    * ``pull``: a neighbor of the row's vertex improved, so the row's
+      minimum must be recomputed; priority is that neighbor's distance;
+    * ``expand``: the row's vertex improved since the row was last
+      expanded, so its listed neighbors' rows must be marked ``pull``;
+      priority is the vertex's own distance.
+
+    A selected row does both with one tile.  The reference pads the tile
+    to ``block_rows``; the kernels mask a ragged tile themselves (and
+    padding rows would be inert), so the port skips that copy.  With
+    ``src_block`` the blocked kernel relaxes the tile, its wrapper building
+    the tile's layout every round (the reference's ``_call_kernel`` path).
+    Counters as in :func:`voronoi_cells_pallas`; default cap 16n + 64
+    rounds; one host sync a round (is any row dirty).  ``interpret`` is
+    ignored.
+    """
+    n = ell.n
+    R, k = ell.nbr.shape
+    dev = ell.nbr.device
+    K = min(frontier_size, R)
+    cap = _cap(max_iters, 16 * n + 64)
+    row2v = ell.row2v
+    st = init_state(n, seeds)
+    exp = torch.isin(row2v, seeds)  # seeds "improved" at init: expand-dirty
+    pull = torch.zeros(R, dtype=torch.bool, device=dev)
+    prio = torch.full((R,), INF, dtype=torch.float32, device=dev)
+    hist = torch.zeros((telemetry_rounds + 1, 4), dtype=torch.float32, device=dev)
+    rlx = torch.zeros((), dtype=torch.float32, device=dev)
+    msg = torch.zeros((), dtype=torch.float32, device=dev)
+    it = 0
+    while it < cap and bool(pull.any() | exp.any()):  # the round's one host sync
+        # --- priority: pull at the marker's distance, expand at its own
+        p = torch.minimum(torch.where(pull, prio, INF),
+                          torch.where(exp, st.dist[row2v], INF))
+        rows = smallest_k(p, K)
+        sel = torch.isfinite(p[rows])  # rows actually dirty
+        do_expand = exp[rows] & sel
+        # clear the selected rows (re-marked below if their vertex improves)
+        pull[rows] &= ~sel
+        prio[rows] = torch.where(sel, INF, prio[rows])
+        exp[rows] &= ~sel
+        # --- relax the gathered tile through the kernel
+        tnbr = ell.nbr[rows]
+        twgt = torch.where(sel[:, None], ell.wgt[rows], INF)
+        v_of = row2v[rows]
+        m, ml, ms = _call_kernel(tnbr, twgt, st.dist, st.lab, block_rows=block_rows,
+                                 src_block=src_block, layout=None)
+        st, upd = lex_update(m, ml, ms, v_of, st)
+        # --- expansion: mark the listed neighbors' rows for a pull at the
+        # expander's (updated) distance
+        mark = do_expand[:, None] & torch.isfinite(twgt)
+        marked = _mark_prio(tnbr, mark, st.dist[v_of], n)[row2v]
+        pull |= torch.isfinite(marked)
+        prio = torch.minimum(prio, marked)
+        # --- every row of an improved vertex needs (re-)expansion
+        exp |= upd[row2v]
+        imp = upd.sum()
+        dmsg = torch.isfinite(twgt).sum()
+        # frontier = dirty rows actually popped this round
+        _hist_write(hist, it, _round_row(sel.sum(), dmsg, imp, st.dist))
+        rlx += imp.to(torch.float32)
+        msg += dmsg.to(torch.float32)
+        it += 1
+    return st, _stats(it, rlx, msg, hist, telemetry_rounds)
+
+
+def _mark_prio(nbr: torch.Tensor, mark: torch.Tensor, prio_of_row: torch.Tensor, n: int):
+    """(n,) f32: the least ``prio_of_row`` of a row that lists the vertex at
+    a ``mark``ed slot, +inf if none.
+
+    An expanded row's vertex has a finite distance (it is a seed or has
+    improved, and distances only fall), so a vertex is marked exactly where
+    this is finite: the reference's separate ``dirty_v`` scatter-max is
+    ``isfinite`` of it.
+    """
+    cand = torch.where(mark, prio_of_row[:, None], INF).reshape(-1)
+    return segment_min(cand, nbr.reshape(-1).long(), n, INF)
+
+
+def voronoi_cells_pallas_frontier_lanes(
+    ell: EllGraph,
+    seeds: torch.Tensor,
+    *,
+    frontier_size: int = 1024,
+    block_rows: int = 256,
+    src_block: Optional[int] = None,
+    interpret: Optional[bool] = None,
+    max_iters: Optional[int] = None,
+    telemetry_rounds: int = 0,
+) -> tuple[VoronoiState, VoronoiStats]:
+    """:func:`voronoi_cells_pallas_frontier` of every row of a (B, S) seed
+    batch (what ``jax.vmap`` of it computes), with one kernel launch a round.
+
+    Each active lane selects its own K rows.  The rows of all active lanes
+    form one (A·K, k) tile whose neighbor ids are offset by lane·N into the
+    flattened (B·N,) dist and lab, so the single-query kernel relaxes every
+    lane at once; the offset is taken off the winning neighbor ids after.
+    A constant offset within a row keeps its lexicographic order, so each
+    lane gets exactly its own tile's result.  A lane whose condition fails
+    keeps its state, counters and history from then on, as the batched
+    ``while_loop`` keeps the carry of a finished lane, so every lane equals
+    the single loop of its row bit for bit.  One host sync a round (which
+    lanes are active).  ``interpret`` is ignored.
+
+    Returns:
+      (state, stats) with a leading (B,) axis on every array.
+    """
+    n = ell.n
+    R, k = ell.nbr.shape
+    dev = ell.nbr.device
+    B = seeds.shape[0]
+    if B * n >= 2**31:
+        raise ValueError(f"{B} lanes of {n} vertices pass int32 neighbor ids")
+    K = min(frontier_size, R)
+    cap = _cap(max_iters, 16 * n + 64)
+    row2v = ell.row2v
+    st = init_states(n, seeds)
+    exp = torch.stack([torch.isin(row2v, s) for s in seeds])
+    pull = torch.zeros((B, R), dtype=torch.bool, device=dev)
+    prio = torch.full((B, R), INF, dtype=torch.float32, device=dev)
+    hist = torch.zeros((B, telemetry_rounds + 1, 4), dtype=torch.float32, device=dev)
+    rlx = torch.zeros(B, dtype=torch.float32, device=dev)
+    msg = torch.zeros(B, dtype=torch.float32, device=dev)
+    it = torch.zeros(B, dtype=torch.int32, device=dev)
+    active = (pull.any(dim=1) | exp.any(dim=1)) & (cap > 0)
+    lanes = active.nonzero().squeeze(1)  # the round's one host sync
+    rounds = 0
+    while lanes.numel():
+        A = lanes.numel()
+        lane_off = lanes * n  # (A,) int64
+        p = torch.minimum(torch.where(pull[lanes], prio[lanes], INF),
+                          torch.where(exp[lanes], st.dist[lanes][:, row2v], INF))
+        rows = smallest_k(p, K)  # (A, K)
+        sel = torch.isfinite(p.gather(1, rows))
+        flat_rows = (lanes[:, None] * R + rows).reshape(-1)
+        do_expand = exp.view(-1)[flat_rows].view(A, K) & sel
+        pull.view(-1)[flat_rows] &= ~sel.reshape(-1)
+        prio.view(-1)[flat_rows] = torch.where(sel, INF, prio.view(-1)[flat_rows].view(A, K)
+                                               ).reshape(-1)
+        exp.view(-1)[flat_rows] &= ~sel.reshape(-1)
+        rows = rows.reshape(-1)
+        tnbr = (ell.nbr[rows].view(A, K, k) + lane_off[:, None, None].to(torch.int32)
+                ).view(A * K, k)
+        twgt = torch.where(sel.reshape(-1, 1), ell.wgt[rows], INF)
+        seg = (row2v[rows].view(A, K) + lane_off[:, None]).reshape(-1)  # flat vertex ids
+        m, ml, ms = _call_kernel(tnbr, twgt, st.dist.view(-1), st.lab.view(-1),
+                                 block_rows=block_rows, src_block=src_block, layout=None)
+        # (a row with no finite candidate holds IMAX there, which no update reads)
+        ms = ms - lane_off.repeat_interleave(K).to(torch.int32)
+        flat_st = VoronoiState(dist=st.dist.view(-1), lab=st.lab.view(-1),
+                               pred=st.pred.view(-1))
+        new, upd = lex_update(m, ml, ms, seg, flat_st)
+        st = VoronoiState(dist=new.dist.view(B, n), lab=new.lab.view(B, n),
+                          pred=new.pred.view(B, n))
+        upd = upd.view(B, n)
+        mark = do_expand.reshape(-1, 1) & torch.isfinite(twgt)
+        marked = _mark_prio(tnbr, mark, st.dist.view(-1)[seg], B * n).view(B, n)[:, row2v]
+        pull |= torch.isfinite(marked)
+        prio = torch.minimum(prio, marked)
+        exp |= upd[:, row2v]
+        imp = upd.sum(dim=1)  # 0 in the lanes that were done
+        dmsg = torch.zeros(B, dtype=torch.int64, device=dev).index_add_(
+            0, lanes, torch.isfinite(twgt).view(A, K * k).sum(dim=1))
+        front = torch.zeros(B, dtype=torch.int64, device=dev).index_add_(
+            0, lanes, sel.sum(dim=1))
+        # every active lane is at round `rounds`; the others keep their rows
+        h = min(rounds, telemetry_rounds)
+        row = _round_row(front, dmsg, imp, st.dist)
+        hist[:, h] = torch.where(active[:, None], row, hist[:, h])
+        rlx += imp.to(torch.float32)
+        msg += dmsg.to(torch.float32)
+        it += active.to(torch.int32)
+        rounds += 1
+        active &= (pull.any(dim=1) | exp.any(dim=1)) & (rounds < cap)
+        lanes = active.nonzero().squeeze(1)  # the round's one host sync
     return st, VoronoiStats(
         iterations=it,
         relaxations=rlx,

@@ -4,7 +4,8 @@
 * :mod:`repro_torch.serve.plan`   - canonicalization, shape buckets, padding
 * :mod:`repro_torch.serve.engine` - micro-batching scheduler + LRU cache
 
-Only ``mode="pallas"`` and in-memory graphs are ported (see ROADMAP.md).
+Every batch mode ("dense", "bucket", "pallas") serves; only in-memory graphs
+are ported (see ROADMAP.md).
 """
 
 from repro_torch.serve.batch import steiner_tree_batch

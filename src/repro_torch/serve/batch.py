@@ -5,7 +5,7 @@ pipeline over a leading query axis; here the ``"batch"`` backend of
 :mod:`repro_torch.solver` runs the Voronoi fixpoint of all B lanes with one
 min-plus kernel launch a round, then the tail lane by lane.  Every lane
 computes exactly what the single-query pipeline computes, bit for bit.
-Only ``mode="pallas"`` is ported; other modes raise ``NotImplementedError``.
+Modes "dense" and "bucket" run lane by lane through the single pipeline.
 """
 
 from __future__ import annotations
@@ -36,10 +36,10 @@ def steiner_tree_batch(
       seeds: (B, S) int32 seed vertex ids; rows may carry duplicate seeds
         (inert padding, see :func:`repro_torch.serve.plan.pad_seed_set`).
       num_seeds: S (defaults to seeds.shape[1]).
-      mode: Voronoi schedule; only "pallas" (the min-plus kernel path) is
-        ported.
+      mode: Voronoi schedule, "dense" | "bucket" | "pallas" (the min-plus
+        kernel path; its ELL view is memoized on first use).
       mst_algo: "prim" ("boruvka" is not ported).
-      delta: bucket width of mode="bucket" (not ported).
+      delta: bucket width of mode="bucket".
       max_iters: safety cap on relaxation rounds.
 
     Returns:

@@ -8,7 +8,7 @@ fixed-shape (max_batch, bucket) micro-batches.
 
 Lifecycle::
 
-    server = SteinerServer(g, ServeConfig(mode="pallas", max_batch=8))
+    server = SteinerServer(g, ServeConfig(max_batch=8))  # mode "bucket"
     server.warmup()                  # optional: one batch a bucket first
     t = server.submit([3, 17, 42])   # enqueue, returns a ticket
     results = server.flush()         # run pending micro-batches
@@ -17,10 +17,11 @@ Lifecycle::
 or one-shot: ``server.query([3, 17, 42])``.  Counters (QPS, p50/p99
 latency, cache hit rate, padding waste) via ``server.stats()``.
 
-The server runs on ``device="cuda"`` unless given another device.  Only
-``mode="pallas"`` and in-memory :class:`~repro_torch.core.graph.Graph`
-inputs are ported: store-backed servers (``graph_path=``, a graph store as
-``g``), ``apply_deltas``, ``bump_epoch`` and the warm re-solve raise
+The server runs on ``device="cuda"`` unless given another device, in every
+mode of the batch backend ("dense", "bucket" by default, "pallas").  Only
+in-memory :class:`~repro_torch.core.graph.Graph` inputs are ported:
+store-backed servers (``graph_path=``, a graph store as ``g``),
+``apply_deltas``, ``bump_epoch`` and the warm re-solve raise
 ``NotImplementedError`` (see ROADMAP.md).  ``stats()`` keeps the
 reference's keys; their epoch fields stay at the in-memory values (epoch
 None, counters 0).
@@ -57,7 +58,7 @@ class ServeConfig:
     buckets: Tuple[int, ...] = planmod.DEFAULT_BUCKETS
     max_batch: int = 8  # B: lanes per micro-batch
     cache_capacity: int = 4096  # LRU entries (0 disables caching)
-    mode: str = "bucket"  # Voronoi schedule; only "pallas" is ported
+    mode: str = "bucket"  # Voronoi schedule: "dense" | "bucket" | "pallas"
     mst_algo: str = "prim"
     delta: Optional[float] = None
     max_iters: Optional[int] = None

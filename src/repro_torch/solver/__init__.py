@@ -1,7 +1,8 @@
 """Solver API: ``SteinerSolver(cfg, device=...).prepare(graph).solve(seeds)``.
 
-Only ``mode="pallas"`` with ``backend="single"`` or ``backend="batch"`` is
-ported so far.
+``backend="single"`` runs modes "dense", "bucket", "frontier" and "pallas"
+(with or without ``pallas_frontier``), ``backend="batch"`` modes "dense",
+"bucket" and "pallas"; the mesh backends are not ported yet.
 """
 
 from repro_torch.solver import backends as _backends  # registers the backends

@@ -4,13 +4,13 @@ Usage::
 
     from repro_torch.solver import SolverConfig, SteinerSolver
 
-    solver = SteinerSolver(SolverConfig(backend="single", mode="pallas"))
-    handle = solver.prepare(graph)        # graph to the GPU, ELL view, once
-    out = handle.solve(seeds)             # min-plus kernel rounds + tail
+    solver = SteinerSolver(SolverConfig())  # backend "single", mode "bucket"
+    handle = solver.prepare(graph)        # graph to the GPU (and ELL view), once
+    out = handle.solve(seeds)             # Voronoi rounds + tail
     out.total_distance                    # D(G_S)
 
-``SolverConfig(backend="batch", mode="pallas")`` takes a (B, S) seed batch
-instead and returns (B,) totals and edge counts.  The solver runs on
+``SolverConfig(backend="batch", ...)`` takes a (B, S) seed batch instead and
+returns (B,) totals and edge counts.  The solver runs on
 ``device="cuda"`` unless given another device; with no CUDA device present
 the default raises instead of running on the CPU.
 """
@@ -62,9 +62,19 @@ class PreparedGraph:
         "blocked_layout"); None if absent."""
         return self._artifacts.get(name)
 
-    def solve(self, seeds) -> SolveOutput:
+    def solve(self, seeds, *, warm_state=None) -> SolveOutput:
         """Solves one query, (S,) seed ids, or a (B, S) batch for
-        backend="batch" (numpy, list or tensor)."""
+        backend="batch" (numpy, list or tensor).
+
+        ``warm_state``: optional :class:`~repro_torch.core.voronoi.VoronoiState`
+        warm start (backend "single", modes "dense", "bucket" and
+        "frontier"; see ``repro.delta.resolve.reset_affected`` for how the
+        reference builds a sound one from a previous epoch's state).
+        """
+        if warm_state is not None and self.backend != "single":
+            raise ValueError(
+                f"warm_state is only supported by backend 'single', not {self.backend!r}"
+            )
         seeds = torch.as_tensor(seeds, dtype=torch.int32, device=self.device)
         if seeds.dim() != self._backend.seeds_ndim:
             want = "(S,)" if self._backend.seeds_ndim == 1 else "(B, S)"
@@ -72,8 +82,9 @@ class PreparedGraph:
                 f"backend {self.backend!r} expects {want} seeds, got shape "
                 f"{tuple(seeds.shape)}"
             )
+        kw = {} if warm_state is None else {"warm_state": warm_state}
         return self._backend.solve(
-            self.config, self._artifacts, seeds, int(seeds.shape[-1])
+            self.config, self._artifacts, seeds, int(seeds.shape[-1]), **kw
         )
 
 

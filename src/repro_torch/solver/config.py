@@ -2,10 +2,10 @@
 
 The same fields, defaults and validation as ``repro.solver.config``, so one
 :class:`SolverConfig` value describes a solve in both packages.  This
-package runs only ``mode="pallas"`` with ``backend="single"`` or
-``backend="batch"`` so far; the solver rejects the other combinations (see
-ROADMAP.md).  The device is not a
-config field: it is an argument of :class:`~repro_torch.solver.SteinerSolver`.
+package runs every mode of ``backend="single"`` and ``backend="batch"``;
+the solver rejects the mesh backends and ``mst_algo="boruvka"`` (see
+ROADMAP.md).  The device is not a config field: it is an argument of
+:class:`~repro_torch.solver.SteinerSolver`.
 """
 
 from __future__ import annotations

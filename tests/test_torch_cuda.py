@@ -405,3 +405,121 @@ def test_blocked_kernel_empty_and_foreign_layout(cuda):
         tmp.minplus_blocked_call(*t, src_block=16, layout=layout)
     with pytest.raises(ValueError, match="layout"):
         tmp.minplus_blocked_call(t[0], t[1], t[2][:16], t[3][:16], src_block=8, layout=layout)
+
+
+@pytest.mark.parametrize("shape", [(1000,), (3, 5000), (1, 70000)])
+@pytest.mark.parametrize("k", [1, 7, 512])
+def test_smallest_k_on_card_matches_cpu(cuda, shape, k):
+    """The top-K selection picks the same rows on the card as on the CPU:
+    the k smallest, lower index first among ties (integer priorities, +inf,
+    -0.0 and +0.0)."""
+    from repro_torch.core.voronoi import smallest_k
+
+    rng = np.random.default_rng(k)
+    p = rng.integers(0, 4, shape).astype(np.float32)
+    p[rng.random(shape) < 0.3] = np.inf
+    p[rng.random(shape) < 0.05] = -0.0
+    p = torch.from_numpy(p)
+    want = torch.sort(smallest_k(p, k), dim=-1).values
+    got = torch.sort(smallest_k(p.to(cuda), k), dim=-1).values
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("src_block", [None, 256])
+def test_pallas_frontier_on_card_matches_cpu(cuda, src_block):
+    """Scale 10: the top-K kernel schedule on the card equals the CPU's bit
+    for bit, one launch a round (with src_block, a tile layout a round)."""
+    src, dst, w, n = rmat_edges(10, 8, max_weight=100, seed=0)
+    seeds = select_seeds(n, src, dst, 16, strategy="uniform", seed=1000)
+    out = {}
+    for d in (cuda, "cpu"):
+        g = from_edges(src, dst, w, n, pad_to=8, device=d)
+        ell = SteinerSolver(SolverConfig(mode="pallas"), device=d).prepare(g).artifact("ell")
+        n0 = (tmp.minplus_call.launches, tmp.minplus_blocked_call.launches,
+              tmp.blocked_layout.builds)
+        sd = torch.as_tensor(seeds, device=d)
+        st, stats = tops.voronoi_cells_pallas_frontier(
+            ell, sd, frontier_size=64, src_block=src_block, telemetry_rounds=300)
+        grew = (tmp.minplus_call.launches - n0[0], tmp.minplus_blocked_call.launches - n0[1],
+                tmp.blocked_layout.builds - n0[2])
+        out[str(d)] = (st, stats, grew)
+    (a, sa, grew), (b, sb, _) = out[str(cuda)], out["cpu"]
+    rounds = int(sa.iterations)
+    if src_block is None:
+        assert grew == (rounds, 0, 0)
+    else:
+        assert grew[0] == 0 and grew[2] == rounds and grew[1] >= rounds
+    for f in ("dist", "lab", "pred"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f))
+    for f in ("iterations", "relaxations", "messages", "history"):
+        assert torch.equal(getattr(sa, f).cpu(), getattr(sb, f))
+
+
+def test_pallas_frontier_lanes_on_card_match_cpu_and_single(cuda):
+    """Scale 10, a (5, 16) batch: the top-K lane loop launches the kernel once
+    a round for all active lanes; every lane equals the card's single loop
+    and the CPU's lane loop bit for bit."""
+    src, dst, w, n = rmat_edges(10, 8, max_weight=100, seed=0)
+    rng = np.random.default_rng(2)
+    seeds = np.stack([rng.choice(n, 16, replace=False) for _ in range(5)]).astype(np.int32)
+    seeds[1, 8:] = seeds[1, 0]
+    out = {}
+    for d in (cuda, "cpu"):
+        g = from_edges(src, dst, w, n, pad_to=8, device=d)
+        ell = SteinerSolver(SolverConfig(mode="pallas"), device=d).prepare(g).artifact("ell")
+        n0 = tmp.minplus_call.launches
+        st, stats = tops.voronoi_cells_pallas_frontier_lanes(
+            ell, torch.as_tensor(seeds, device=d), frontier_size=32, telemetry_rounds=300)
+        out[str(d)] = (st, stats, tmp.minplus_call.launches - n0, ell)
+    (a, sa, la, ell), (b, sb, _, _) = out[str(cuda)], out["cpu"]
+    assert la == int(sa.iterations.max())
+    for f in ("dist", "lab", "pred"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f))
+    for f in ("iterations", "relaxations", "messages", "history"):
+        assert torch.equal(getattr(sa, f).cpu(), getattr(sb, f))
+    for lane in range(len(seeds)):
+        one, ostats = tops.voronoi_cells_pallas_frontier(
+            ell, torch.as_tensor(seeds[lane], device=cuda), frontier_size=32,
+            telemetry_rounds=300)
+        for f in ("dist", "lab", "pred"):
+            assert torch.equal(getattr(one, f), getattr(a, f)[lane])
+        for f in ("iterations", "relaxations", "messages", "history"):
+            assert torch.equal(getattr(ostats, f), getattr(sa, f)[lane])
+
+
+@pytest.mark.parametrize("mode", ["dense", "bucket", "frontier"])
+def test_schedules_on_card_match_cpu(cuda, mode):
+    """Scale 10: the COO and ELL schedules of the single backend give the
+    same answer on the card as on the CPU, counters and telemetry included
+    (the bucket width, an exact mean, is the same on both)."""
+    src, dst, w, n = rmat_edges(10, 8, max_weight=100, seed=0)
+    w = (w / 7.0).astype(np.float32)  # non-integer weights: Δ's sum is inexact in f32
+    seeds = select_seeds(n, src, dst, 16, strategy="uniform", seed=1000)
+    cfg = SolverConfig(mode=mode, frontier_size=64)
+    out = {}
+    for d in (cuda, "cpu"):
+        g = from_edges(src, dst, w, n, pad_to=8, device=d)
+        out[str(d)] = SteinerSolver(cfg, device=d).prepare(g).solve(seeds)
+    a, b = out[str(cuda)], out["cpu"]
+    for f in ("dist", "lab", "pred"):
+        assert torch.equal(getattr(a.raw.state, f).cpu(), getattr(b.raw.state, f))
+    ta, tb = a.telemetry, b.telemetry
+    assert (ta.iterations, ta.relaxations, ta.messages) == (tb.iterations, tb.relaxations,
+                                                            tb.messages)
+    assert (ta.per_round == tb.per_round).all()
+    assert a.num_edges == b.num_edges
+
+
+def test_default_server_on_card_matches_cpu(cuda):
+    """SteinerServer(g) with the default ServeConfig() (mode "bucket") serves
+    on the card, and equals the CPU server."""
+    src, dst, w, n = rmat_edges(10, 8, max_weight=100, seed=0)
+    rng = np.random.default_rng(3)
+    stream = [rng.choice(n, int(k), replace=False).tolist() for k in rng.integers(2, 30, 10)]
+    stream += stream[:3]
+    res = {}
+    for d in (cuda, "cpu"):
+        srv = SteinerServer(from_edges(src, dst, w, n, pad_to=8, device=d), device=d)
+        res[str(d)] = [(r.total_distance, r.num_edges, r.from_cache)
+                       for r in srv.query_many(stream)]
+    assert res[str(cuda)] == res["cpu"]

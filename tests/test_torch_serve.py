@@ -239,8 +239,13 @@ def test_steiner_tree_batch_is_the_backend(rmat9):
         assert_same(getattr(out.raw.tree, f), getattr(res.tree, f))
     with pytest.raises(ValueError, match=r"\(B, S\)"):
         steiner_tree_batch(tg, np.arange(5, dtype=np.int32), mode="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        steiner_tree_batch(tg, seeds)  # mode="bucket", the reference's default
+    # mode="bucket", the reference's default: the batch backend in that mode
+    res = steiner_tree_batch(tg, seeds)
+    out = SteinerSolver(SolverConfig(backend="batch"), device="cpu").prepare(tg).solve(seeds)
+    for f in ("dist", "lab", "pred"):
+        assert_same(getattr(out.raw.state, f), getattr(res.state, f))
+    for f in TREE_FIELDS:
+        assert_same(getattr(out.raw.tree, f), getattr(res.tree, f))
 
 
 @pytest.mark.parametrize("B", [1, 3])
@@ -447,8 +452,11 @@ def test_query_preserves_other_callers_results():
 
 def test_server_rejects_what_is_not_ported():
     g = _small()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SteinerServer(g, ServeConfig(), device="cpu")  # mode="bucket"
+    # the default config (mode="bucket") serves: a query equals the single
+    # bucket solve of its padded seed row
+    q = SteinerServer(g, ServeConfig(), device="cpu").query([1, 9, 17, 25])
+    one = SteinerSolver(SolverConfig(), device="cpu").prepare(g).solve(pad_seed_set(q.key, 8))
+    assert (q.total_distance, q.num_edges) == (one.total_distance, one.num_edges)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         SteinerServer(graph_path="some.gstore", device="cpu")
     with pytest.raises(ValueError, match="exactly one"):

@@ -151,13 +151,9 @@ def test_config_fields_and_defaults_match_reference():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(backend="single", mode="bucket"),
-    dict(backend="single", mode="dense"),
-    dict(backend="single", mode="frontier"),
-    dict(backend="batch", mode="bucket"),
     dict(backend="mesh1d", mode="dense"),
-    dict(backend="single", mode="pallas", pallas_frontier=True),
     dict(backend="single", mode="pallas", mst_algo="boruvka"),
+    dict(backend="batch", mode="bucket", mst_algo="boruvka"),
 ])
 def test_not_ported_raises(kw):
     with pytest.raises(NotImplementedError, match="not ported yet: see ROADMAP.md"):
