@@ -44,6 +44,16 @@ result):
    backend with src_block=4096, in modes "dense" and "bucket", and with
    pallas_frontier, card vs CPU bit for bit (blocked lane launches =
    rounds x lane groups x slices; the top-K batch one launch a round);
+5b. RMAT scale 16 from a graph store written by the port's build_store,
+   card vs CPU bit for bit: SolverConfig(mode="pallas",
+   ell_pad_rows=4096) prepared from the store, resident and with
+   src_block=4096 (the layout built from the padded ELL), against the
+   in-memory solve; an (8, 16) batch from the store (lane launches =
+   rounds); a store-backed SteinerServer in modes "pallas" and "bucket"
+   through two apply_deltas epochs (answers, epoch reports, invalidated /
+   revalidated / warm counts equal); an IncrementalSession through three
+   epochs with Prim and with Borůvka, the last equal to a cold frontier
+   solve; boruvka_dense on a tie-heavy (1024, 1024) integer table;
 6. full width, the repo's lvj_1k cell cut to RMAT: prepare, one cold and 3
    warm solves with their times and a stage breakdown; launches equal to
    the rounds; the kernel equal to the plain version at the converged state;
@@ -76,6 +86,17 @@ result):
    path (a layout built each round with src_block); one (8192, 32) tile's
    kernel times beside its bound and its layout build; a profiler pass
    over the first rounds of the top-K kernel loop;
+9b. the store-backed path at full width on phase 6's graph: build_store
+   from phase 6's host edges into a temporary directory (removed at the
+   end; ~1.3 GB), open_store with CRC verification, prepare with
+   ell_pad_rows=65536 (28,045 spare rows) and a warm solve bit-identical
+   to phase 6's; a store-backed server over phase 7's stream, 50 queries,
+   one apply_deltas of 100 records (60 adds, 20 deletes, 20 reweights),
+   50 more, every distinct post-bump answer equal to a cold single solve
+   of the mutated store; an IncrementalSession (K = 8192) through three
+   epochs of 100 records, the last bit-identical to a cold frontier solve;
+   Borůvka beside Prim on phase 6's pair table (equal MST weight); peak
+   device memory;
 10. a line of launches by path, then one JSON line with each kernel's
    launches on its paths (the top-K ones of phase 9 included), its error and
    mismatches against the plain version, and its time beside its bound and
@@ -365,7 +386,7 @@ def check_blocked(tally, t, SB, what, block_rows=256):
 def torch_equal(a, b):
     import torch
 
-    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b.to(a.device))
 
 
 def phase2_kernels(dev, tally):
@@ -779,13 +800,216 @@ def phase5_server_card_vs_cpu(dev):
     return launches
 
 
+def delta_records(rng, n, src, dst, adds, deletes, reweights):
+    """Edge-delta records in a shuffled order: ``adds`` between uniform
+    vertices with weights 1..100, ``deletes`` and ``reweights`` of existing
+    edges (the host edge list ``src``/``dst``)."""
+    recs = []
+    for _ in range(adds):
+        u, v = (int(x) for x in rng.integers(0, n, size=2))
+        recs.append(("add", u, v if u != v else (v + 1) % n, float(rng.integers(1, 101))))
+    for i, j in enumerate(rng.integers(0, len(src), size=deletes + reweights)):
+        u, v = int(src[j]), int(dst[j])
+        recs.append(("delete", u, v) if i < deletes
+                    else ("reweight", u, v, float(rng.integers(1, 101))))
+    return [recs[i] for i in rng.permutation(len(recs))]
+
+
+def recording_solve(server, batches):
+    """Wraps the server's batch handle so each batch appends its (bucket,
+    seconds, rounds) to ``batches``; the wrapper stays across refreshes."""
+    solve = server._handle.solve
+
+    def recorded(seed_batch):
+        t0 = time.perf_counter()
+        out = solve(seed_batch)
+        sync()
+        batches.append((seed_batch.shape[1], time.perf_counter() - t0,
+                        out.telemetry.iterations))
+        return out
+
+    server._handle.solve = recorded
+
+
+def phase5b_store_card_vs_cpu(dev):
+    """RMAT scale 16 from a graph store written by the port's build_store,
+    card against CPU bit for bit: prepare(store) in mode "pallas" with
+    ell_pad_rows=4096 (resident and src_block=4096) against the in-memory
+    solve; a store-backed server in modes "pallas" and "bucket" through two
+    apply_deltas epochs (answers, reports and counters equal; lane launches
+    = rounds on the padded ELL); an IncrementalSession through three epochs
+    with Prim and with Borůvka; boruvka_dense's parent on a tie-heavy
+    integer pair table.  Returns the card's kernel launches by path."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distance_graph as dgmod
+    from repro_torch.core.graph import from_edges
+    from repro_torch.core.mst import boruvka_dense
+    from repro_torch.data.graphs import rmat_edges, select_seeds
+    from repro_torch.delta import IncrementalSession
+    from repro_torch.graphstore import ArraySource, build_store, open_store
+    from repro_torch.kernels.minplus import minplus as kmod
+    from repro_torch.serve import ServeConfig, SteinerServer
+    from repro_torch.solver import SolverConfig, SteinerSolver
+
+    src, dst, w, n = rmat_edges(16, 8, max_weight=100, seed=0)
+    seeds = select_seeds(n, src, dst, 64, strategy="uniform", seed=1000)
+    S = len(seeds)
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_s16_") as tmp:
+        def fresh_store(name):
+            return open_store(build_store(ArraySource(src, dst, w, n),
+                                          Path(tmp) / f"{name}.gstore")[0])
+
+        store = fresh_store("base")
+        for sb in (None, 4096):
+            cfg = SolverConfig(backend="single", mode="pallas", ell_pad_rows=4096, src_block=sb)
+            runs = {}
+            for d in (dev, "cpu"):
+                h = SteinerSolver(cfg, device=d).prepare(store)
+                kmod.minplus_call.launches = kmod.minplus_blocked_call.launches = 0
+                res = h.solve(seeds)
+                got = (kmod.minplus_call.launches, kmod.minplus_blocked_call.launches)
+                runs[str(d)] = (h, res, got)
+            (h, a, got), (hc, b, _) = runs[str(dev)], runs["cpu"]
+            hm = SteinerSolver(cfg, device=dev).prepare(
+                from_edges(src, dst, w, n, pad_to=8, device=dev))
+            mem = hm.solve(seeds)
+            what = f"store pallas src_block={sb} ell_pad_rows=4096"
+            same_raw(a.raw, b.raw, f"{what}: card vs CPU")
+            same_raw(a.raw, mem.raw, f"{what}: store vs in-memory graph")
+            for x_name, x, y in zip(("dmat", "umat", "vmat"),
+                                    dgmod.distance_graph(h.graph, a.raw.state, S),
+                                    dgmod.distance_graph(hc.graph, b.raw.state, S)):
+                _bitwise(x, y, f"{what} {x_name}")
+            ell, rounds = h.artifact("ell"), a.telemetry.iterations
+            if sb is None:
+                ok = got == (rounds, 0)
+            else:
+                layout = h.artifact("blocked_layout")
+                ok = layout.rows == ell.nbr.shape[0] and got == (0, rounds * len(layout.slices))
+            if not ok or ell.nbr.shape[0] % 4096:
+                raise AssertionError(f"{what}: launches (resident, blocked) {got} for {rounds} "
+                                     f"rounds, ELL {tuple(ell.nbr.shape)}")
+            launches[f"store pallas src_block={sb}"] = got
+            log(f"phase 5b: scale 16 {what}: ELL {tuple(ell.nbr.shape)} (in memory "
+                f"{tuple(hm.artifact('ell').nbr.shape)}); card = CPU = in-memory bit for bit; "
+                f"D={a.total_distance} rounds={rounds}; launches (resident, blocked) {got}")
+
+        # the lane kernel on the padded ELL: a batch prepared from the store
+        rng = np.random.default_rng(1)
+        rows = np.stack([rng.choice(n, 16, replace=False) for _ in range(8)]).astype(np.int32)
+        bcfg = SolverConfig(backend="batch", mode="pallas", ell_pad_rows=4096)
+        outs = {}
+        for d in (dev, "cpu"):
+            kmod.minplus_call.launches = kmod.minplus_call.lane_launches = 0
+            outs[str(d)] = SteinerSolver(bcfg, device=d).prepare(store).solve(rows)
+            if d == dev:
+                lane = kmod.minplus_call.lane_launches
+        a, b = outs[str(dev)], outs["cpu"]
+        same_raw(a.raw, b.raw, "store batch pallas ell_pad_rows=4096: card vs CPU")
+        if lane != a.telemetry.iterations:
+            raise AssertionError(f"store batch: {lane} lane launches for "
+                                 f"{a.telemetry.iterations} rounds")
+        launches["store batch lanes"] = lane
+        log(f"phase 5b: scale 16 (8, 16) batch from the store, ell_pad_rows=4096: card = CPU "
+            f"bit for bit; lane launches {lane} = rounds")
+
+        buckets = (8, 16, 32)
+        rng = np.random.default_rng(0)
+        pool = build_query_pool(n, rng, 6, buckets)
+        queries = [pool[i] for i in zipf_stream(rng, 6, 12, 1.1)]
+        epochs = [delta_records(np.random.default_rng(10 + e), n, src, dst, 30, 10, 10)
+                  for e in range(2)]
+        for mode in ("pallas", "bucket"):
+            # four lanes a batch: the CPU's side solves every padding lane too
+            cfg = ServeConfig(mode=mode, buckets=buckets, max_batch=4)
+            runs = {}
+            for i, d in enumerate((dev, "cpu")):
+                t0 = time.perf_counter()
+                srv = SteinerServer(fresh_store(f"srv_{mode}_{i}"), cfg, device=d)
+                batches = []
+                recording_solve(srv, batches)
+                kmod.minplus_call.launches = kmod.minplus_call.lane_launches = 0
+                served = [serve_stream(srv, queries, 4)[0]]
+                reports = []
+                for recs in epochs:
+                    reports.append(srv.apply_deltas(recs))
+                    served.append(serve_stream(srv, queries, 4)[0])
+                lane = kmod.minplus_call.lane_launches
+                runs[str(d)] = ([[(r.key, r.total_distance, r.num_edges, r.from_cache)
+                                  for r in part] for part in served], reports,
+                                {k: v for k, v in srv.stats().items() if k not in TIMED_STATS},
+                                lane, sum(r for _, _, r in batches), time.perf_counter() - t0)
+            (ra, pa, sa, lane, rounds, tg), (rb, pb, sb_, _, _, tc) = runs[str(dev)], runs["cpu"]
+            if (ra, pa, sa) != (rb, pb, sb_):
+                raise AssertionError(f"store server mode={mode}: card and CPU differ")
+            if mode == "pallas" and lane != rounds:
+                raise AssertionError(f"store server: {lane} lane launches for {rounds} rounds")
+            if mode == "bucket" and lane:
+                raise AssertionError(f"the mode=bucket store server launched {lane} lane kernels")
+            if mode == "pallas":
+                launches["store server lanes"] = lane
+            log(f"phase 5b: scale 16 store-backed server mode={mode}, {len(queries)} queries "
+                f"before and after each of 2 epochs of {len(epochs[0])} records: card and CPU "
+                f"identical; reports " + ", ".join(
+                    f"(epoch {r['epoch']}, invalidated {r['invalidated']}, revalidated "
+                    f"{r['revalidated']})" for r in pa)
+                + f"; warm re-solves {sa['warm_resolves']}; lane launches {lane} = rounds; "
+                f"card {tg:.3f} s, cpu {tc:.3f} s")
+
+        for algo in ("prim", "boruvka"):
+            sess, cold_s = {}, {}
+            for i, d in enumerate((dev, "cpu")):
+                store_i = fresh_store(f"inc_{algo}_{i}")
+                sess[str(d)], cold_s[str(d)] = timed(lambda: IncrementalSession(
+                    store_i, seeds, ell_pad_rows=4096, frontier_size=1024, mst_algo=algo,
+                    device=d))
+            a, b = sess[str(dev)], sess["cpu"]
+            rows = []
+            for e in range(3):
+                recs = delta_records(np.random.default_rng(20 + e), n, src, dst, 30, 10, 10)
+                (ra, ta), (rb, tb) = timed(a.apply_deltas, recs), timed(b.apply_deltas, recs)
+                if dataclasses.asdict(ra) != dataclasses.asdict(rb):
+                    raise AssertionError(f"session {algo} epoch {e}: {ra} vs {rb}")
+                for f in ("dist", "lab", "pred"):
+                    _bitwise(getattr(a.state, f), getattr(b.state, f), f"session {algo} {f}")
+                if not (np.array_equal(a.parent, b.parent) and np.array_equal(a.dmat, b.dmat)):
+                    raise AssertionError(f"session {algo} epoch {e}: MST or pair tables differ")
+                rows.append((ra.epoch, ra.affected_cells, ra.vertices_reset, ra.iterations,
+                             round(ta, 3), round(tb, 3)))
+            cold = SteinerSolver(SolverConfig(mode="frontier", mst_algo=algo), device=dev
+                                 ).prepare(a.store).solve(seeds)
+            if (cold.total_distance, cold.num_edges) != (ra.total_distance, ra.num_edges) or not (
+                    np.array_equal(cold.raw.parent.cpu().numpy(), a.parent)):
+                raise AssertionError(f"session {algo}: the last epoch differs from a cold solve")
+            log(f"phase 5b: scale 16 IncrementalSession mst_algo={algo}: 3 epochs card = CPU bit "
+                f"for bit and = a cold frontier solve; cold construction card "
+                f"{cold_s[str(dev)]:.3f} s, cpu {cold_s['cpu']:.3f} s; (epoch, cells, reset, "
+                f"rounds, card s, cpu s) {rows}")
+
+    rng = np.random.default_rng(3)
+    W = rng.integers(1, 5, (1024, 1024)).astype(np.float32)
+    W[rng.random(W.shape) < 0.2] = np.inf
+    W = np.minimum(W, W.T)
+    np.fill_diagonal(W, np.inf)
+    want = boruvka_dense(torch.from_numpy(W))
+    _bitwise(boruvka_dense(torch.from_numpy(W).to(dev)), want, "boruvka_dense parent (ties)")
+    log("phase 5b: boruvka_dense on a (1024, 1024) tie-heavy integer table: card = CPU")
+    return launches
+
+
 def blocked_launches_per_call(h, lanes):
     """Blocked launches of one relaxation of ``lanes`` lanes on the prepared
     handle ``h``: one a lane group and slice of its layout."""
     from repro_torch.kernels.minplus.minplus import blocked_stride
     from repro_torch.solver.backends import blocked_layout_cached
 
-    layout = blocked_layout_cached(h.graph, h.config, lanes)
+    layout = blocked_layout_cached(h.artifact("ell"), h.config, lanes)
     return -(-lanes // blocked_stride(lanes)) * len(layout.slices)
 
 
@@ -922,7 +1146,7 @@ def phase6_full_width(dev, scale, n_seeds, tally):
     if bool(upd.any()):
         raise AssertionError("one more relaxation of the fixpoint improved a vertex")
     del want
-    return rec, h, st, (seeds, first)
+    return rec, h, st, (seeds, first), g_host
 
 
 RAW_FIELDS = (("state", ("dist", "lab", "pred")),
@@ -1202,6 +1426,206 @@ def phase9_schedules_full_width(dev, h, single_in, tally, topk_k=TOPK_KERNEL_K):
         f"{json.dumps(prof['minplus_launches'])} launches")
     rec["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 9: {rec['phase_s']:.1f} s")
+    return rec, launches
+
+
+def mst_weight(W, parent):
+    """Total weight of an MST parent array over the symmetric (S, S) table
+    ``W`` (host f64 sum; the root row adds nothing)."""
+    import numpy as np
+
+    kids = np.nonzero(parent != np.arange(len(parent)))[0]
+    return float(W[kids, parent[kids]].astype(np.float64).sum())
+
+
+SERVED = 50  # queries of phase 7's stream served before and after the deltas
+
+
+def phase9b_store_full_width(dev, h, single_in, g_host):
+    """Phase 6's graph through a graph store at full width: build_store from
+    phase 6's host edges into a temporary directory (removed at the end),
+    open_store with CRC verification, prepare with ell_pad_rows=65536 and a
+    warm solve bit-identical to phase 6's; a store-backed server over the
+    first SERVED queries of phase 7's stream, one apply_deltas of 100
+    records (60 adds, 20 deletes, 20 reweights), the next SERVED queries,
+    each distinct post-bump answer equal to a cold single solve of the
+    mutated store; an IncrementalSession (K = 8192) through three such epochs, the
+    last bit-identical to a cold frontier solve; Borůvka beside Prim on
+    phase 6's pair table.  Returns the record and the kernels' launches."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import steiner as smod
+    from repro_torch.delta import IncrementalSession
+    from repro_torch.graphstore import ArraySource, build_store, open_store
+    from repro_torch.kernels.minplus import minplus as kmod
+    from repro_torch.serve import ServeConfig, SteinerServer
+    from repro_torch.serve.plan import plan_query
+    from repro_torch.solver import SolverConfig, SteinerSolver
+
+    seeds, ref = single_in
+    src, dst, w, n = g_host
+    S = len(seeds)
+    rec, launches = {}, {}
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
+        path = Path(tmp) / "rmat23.gstore"
+        (_, ingest), rec["build_store_s"] = timed(
+            build_store, ArraySource(src, dst, w, n, chunk_edges=1 << 22), path)
+        rec["store_bytes"] = sum(f.stat().st_size for f in path.iterdir())
+        rec["ingest_edges_per_s"] = ingest.edges_per_sec
+        store, rec["open_verify_s"] = timed(open_store, path)
+        rec["store_m"] = store.m
+        log(f"phase 9b: build_store {rec['build_store_s']:.3f} s ({ingest.edges_in} input "
+            f"edges, {ingest.edges_per_sec:.0f} edges/s, peak chunk "
+            f"{ingest.peak_chunk_bytes} B), {rec['store_bytes']} bytes on disk; open_store "
+            f"with CRC verification {rec['open_verify_s']:.3f} s; m={store.m} directed edges "
+            f"(phase 6's COO: {h.graph.num_edges}, padded to a multiple of 8)")
+
+        cfg = h.config.replace(ell_pad_rows=65536)
+        hs, rec["prepare_s"] = timed(lambda: SteinerSolver(cfg, device=dev).prepare(store))
+        R0, R = h.artifact("ell").nbr.shape[0], hs.artifact("ell").nbr.shape[0]
+        kmod.minplus_call.launches = 0
+        cold, rec["cold_solve_s"] = timed(hs.solve, seeds)
+        warm, rec["warm_solve_s"] = timed(hs.solve, seeds)
+        launches["minplus_call (pallas from a store)"] = kmod.minplus_call.launches
+        same_fixpoint(warm.raw, ref.raw, "the store's warm solve vs phase 6's")
+        t, t6 = warm.telemetry, ref.telemetry
+        counters = (t.iterations, t.relaxations, t.messages)
+        if counters != (t6.iterations, t6.relaxations, t6.messages):
+            raise AssertionError(f"the store's counters {counters} differ from phase 6's")
+        if kmod.minplus_call.launches != 2 * t.iterations:
+            raise AssertionError(f"{kmod.minplus_call.launches} launches for 2 x {t.iterations}")
+        rec.update(ell_rows=R, spare_rows=R - R0, iterations=t.iterations,
+                   relaxations=t.relaxations, messages=t.messages)
+        log(f"phase 9b: prepare from the store {rec['prepare_s']:.3f} s, ELL ({R}, "
+            f"{hs.artifact('ell').nbr.shape[1]}): {R - R0} spare rows; cold "
+            f"{rec['cold_solve_s']:.3f} s, warm {rec['warm_solve_s']:.3f} s; phase 6's state, "
+            f"MST and tree bit for bit; counters {counters} = phase 6's (the same real edges: "
+            f"phase 6's padding edges are +inf and count in no counter)")
+        del hs, cold, warm
+
+        buckets = (8, 16, 32)
+        rng = np.random.default_rng(0)  # phase 7's pool and stream
+        pool = build_query_pool(n, rng, 40, buckets)
+        queries = [pool[i] for i in zipf_stream(rng, 40, 200, 1.1)]
+        srv, rec["server_boot_s"] = timed(lambda: SteinerServer(
+            graph_path=str(path), config=ServeConfig(mode="pallas", buckets=buckets, max_batch=8),
+            device=dev))
+        batches, warm_s = [], []
+        recording_solve(srv, batches)
+        warm_resolve = srv._warm_resolve
+
+        def timed_warm(plan):  # each warm re-solve's seconds
+            out, secs = timed(warm_resolve, plan)
+            if out is not None:
+                warm_s.append(secs)
+            return out
+
+        srv._warm_resolve = timed_warm
+        kmod.minplus_call.lane_launches = 0
+        # the first 50 queries of the stream, then the next 50 (cut from 100
+        # and 100 to keep the phase near 180 s; PERF.md §4)
+        _, rec["served_before_s"] = serve_stream(srv, queries[:SERVED], 8)
+        recs = delta_records(np.random.default_rng(100), n, src, dst, 60, 20, 20)
+        report, rec["apply_deltas_s"] = timed(srv.apply_deltas, recs)
+        after, rec["served_after_s"] = serve_stream(srv, queries[SERVED:2 * SERVED], 8)
+        lane = kmod.minplus_call.lane_launches
+        if lane != sum(r for _, _, r in batches):
+            raise AssertionError(f"store server: {lane} lane launches for the batches' rounds")
+        launches["minplus_call (lanes, store-backed server)"] = lane
+        st = srv.stats()
+        rec["server"] = dict(report={k: v for k, v in report.items() if k != "refreshed"},
+                             refreshed=list(report["refreshed"]), batches=len(batches),
+                             rounds=sum(r for _, _, r in batches), lane_launches=lane,
+                             **{k: st[k] for k in ("cache_hits", "cache_invalidations",
+                                                   "cache_revalidations", "warm_resolves",
+                                                   "retained_states", "epoch")})
+        log(f"phase 9b: store-backed server: boot {rec['server_boot_s']:.3f} s; first {SERVED} "
+            f"queries {rec['served_before_s']:.3f} s; apply_deltas of {len(recs)} records "
+            f"(append + refresh + revalidation) {rec['apply_deltas_s']:.3f} s: epoch "
+            f"{report['epoch']}, invalidated {report['invalidated']}, revalidated "
+            f"{report['revalidated']}, refreshed {report['refreshed']}; next {SERVED} queries "
+            f"{rec['served_after_s']:.3f} s, {st['warm_resolves']} warm re-solves; "
+            f"{len(batches)} batches, {lane} lane launches = their rounds")
+        cold_h, rec["cold_prepare_s"] = timed(lambda: SteinerSolver(
+            SolverConfig(backend="single", mode="pallas"), device=dev).prepare(
+            srv._handle.artifact("store")))
+        distinct, cold_s = {}, []
+        for r in after:
+            distinct.setdefault(r.key, r)
+        for key, r in distinct.items():
+            c, secs = timed(cold_h.solve, plan_query(key, buckets).padded)
+            cold_s.append(secs)
+            if (c.total_distance, c.num_edges) != (r.total_distance, r.num_edges):
+                raise AssertionError(f"post-bump answer for {key[:4]}...: served "
+                                     f"{r.total_distance}/{r.num_edges}, cold "
+                                     f"{c.total_distance}/{c.num_edges}")
+        rec["server"].update(checked_keys=len(distinct), warm_resolve_s=warm_s,
+                             cold_single_s=cold_s)
+        log(f"phase 9b: {len(distinct)} distinct post-bump answers = cold single solves of "
+            f"the mutated store (prepare {rec['cold_prepare_s']:.3f} s); a warm re-solve "
+            f"(mode dense) {min(warm_s, default=0):.3f}-{max(warm_s, default=0):.3f} s, "
+            f"median {float(np.median(warm_s)) if warm_s else 0:.3f} s; a cold single pallas "
+            f"solve {min(cold_s):.3f}-{max(cold_s):.3f} s, median {float(np.median(cold_s)):.3f} s")
+        store = srv._handle.artifact("store")
+        del srv, cold_h
+
+        sess, rec["session_cold_s"] = timed(lambda: IncrementalSession(
+            store, seeds, ell_pad_rows=65536, frontier_size=8192, device=dev))
+        log(f"phase 9b: IncrementalSession (K = 8192, ell_pad_rows=65536) cold construction "
+            f"{rec['session_cold_s']:.3f} s: {sess.last.iterations} rounds, "
+            f"{sess.patcher.free_rows} free rows")
+        rec["epochs"] = []
+        for e in range(3):
+            recs = delta_records(np.random.default_rng(200 + e), n, src, dst, 60, 20, 20)
+            res, secs = timed(sess.apply_deltas, recs)
+            row = dict(seconds=secs, free_rows=sess.patcher.free_rows, **dataclasses.asdict(res))
+            rec["epochs"].append(row)
+            log(f"phase 9b: epoch {res.epoch}: {secs:.3f} s; changed {res.changed_vertices}, "
+                f"affected cells {res.affected_cells}, reset {res.vertices_reset}, cells "
+                f"recomputed {res.cells_recomputed} ({res.member_vertices} members), rounds "
+                f"{res.iterations}, free rows {sess.patcher.free_rows}; D={res.total_distance}")
+        fcfg = SolverConfig(backend="single", mode="frontier", frontier_size=8192)
+        cold, rec["frontier_cold_s"] = timed(
+            lambda: SteinerSolver(fcfg, device=dev).prepare(store).solve(seeds))
+        for f in ("dist", "lab", "pred"):
+            _bitwise(getattr(sess.state, f), getattr(cold.raw.state, f), f"last epoch {f}")
+        if not (np.array_equal(sess.parent, cold.raw.parent.cpu().numpy())
+                and (sess.total_distance, sess.num_edges) == (cold.total_distance,
+                                                               cold.num_edges)):
+            raise AssertionError("the last epoch differs from a cold frontier solve")
+        log(f"phase 9b: the last epoch = a cold mode=\"frontier\" solve of the mutated store "
+            f"(state, parent, D={cold.total_distance}, {cold.num_edges} edges; prepare + cold "
+            f"solve {rec['frontier_cold_s']:.3f} s, {cold.telemetry.iterations} rounds)")
+        del sess, cold
+
+    # Borůvka beside Prim on phase 6's pair table
+    dmat = ref.raw.dmat
+    parents, times = {}, {}
+    for algo in ("prim", "boruvka", "prim", "boruvka"):
+        parents[algo], t_s = timed(smod.mst_parent, dmat, S, algo)
+        times.setdefault(algo, []).append(t_s)
+    W = dmat.view(S, S).cpu().numpy()
+    W = np.minimum(W, W.T)
+    np.fill_diagonal(W, np.inf)
+    weights = {a: mst_weight(W, p.cpu().numpy()) for a, p in parents.items()}
+    if weights["prim"] != weights["boruvka"]:
+        raise AssertionError(f"MST weights differ: {weights}")
+    if not torch.equal(parents["prim"], ref.raw.parent):
+        raise AssertionError("Prim's parent differs from phase 6's")
+    rec["mst"] = dict(prim_s=times["prim"], boruvka_s=times["boruvka"], weight=weights["prim"],
+                      same_tree=bool(torch.equal(parents["prim"], parents["boruvka"])))
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 9b: MST of phase 6's pair table (S={S}): Prim {times['prim']} s, Borůvka "
+        f"{times['boruvka']} s, equal weight {weights['prim']}, same tree "
+        f"{rec['mst']['same_tree']}; peak {rec['peak_mem_gb']:.1f} GB; phase "
+        f"{rec['phase_s']:.1f} s")
     return rec, launches
 
 
@@ -1549,8 +1973,11 @@ def main(argv=None) -> int:
     if min(lanes16.values()) == 0:
         raise AssertionError(f"scale-16 serving launched {lanes16}")
     done("5")
+    # ---- phase 5b (graph stores, deltas and the incremental re-solve at scale 16)
+    store16 = phase5b_store_card_vs_cpu(dev)
+    done("5b")
     # ---- phase 6 (the resident kernel's main path, full width)
-    rec, h, st, single_in = phase6_full_width(dev, args.scale, args.seeds, tally)
+    rec, h, st, single_in, g_host = phase6_full_width(dev, args.scale, args.seeds, tally)
     done("6")
     # ---- phase 7 (the lane kernel's serving path, full width)
     serve_rec, lane_launches, lanes_in = phase7_serving(dev, h)
@@ -1564,8 +1991,11 @@ def main(argv=None) -> int:
     # ---- phase 9 (the other schedules and the top-K kernel path, full width)
     sched_rec, sched_launches = phase9_schedules_full_width(dev, h, single_in, tally,
                                                             args.topk_kernel_k)
-    del single_in
     done("9")
+    # ---- phase 9b (the store-backed path at full width)
+    store_rec, store_launches = phase9b_store_full_width(dev, h, single_in, g_host)
+    del single_in, g_host
+    done("9b")
     times = kernel_times(dev, h.artifact("ell"), st, {"full": hb, "scale16": blocked16},
                          lanes_in, seg_in, tally)
     done("10")
@@ -1580,11 +2010,14 @@ def main(argv=None) -> int:
                "minplus_blocked_call (pallas, phase 8)": blocked_launches,
                "minplus_blocked_call (lanes, phase 8)": blocked_lane_launches,
                "segmin_bucketed_call (phase 2)": seg_launches,
-               **{f"{k[:-1]}, phase 9)": v for k, v in sched_launches.items()}}
+               **{f"{k[:-1]}, phase 9)": v for k, v in sched_launches.items()},
+               **{f"{k[:-1]}, phase 9b)": v for k, v in store_launches.items()}}
     log(f"launches by path: {json.dumps(by_path)}")
     launches = {"minplus_call": rec["launches_per_solve"] * 4
-                + sched_launches["minplus_call (pallas_frontier)"],
-                "minplus_call (lanes)": lane_launches,
+                + sched_launches["minplus_call (pallas_frontier)"]
+                + store_launches["minplus_call (pallas from a store)"],
+                "minplus_call (lanes)": lane_launches
+                + store_launches["minplus_call (lanes, store-backed server)"],
                 "minplus_blocked_call": blocked_launches
                 + sched_launches["minplus_blocked_call (pallas_frontier)"],
                 "minplus_blocked_call (lanes)": blocked_lane_launches,
@@ -1617,6 +2050,7 @@ def main(argv=None) -> int:
             {"device": smi, "torch": torch.__version__, "build_s": build_s, "ptxas": ptxas,
              "full_width": rec, "serving": serve_rec, "blocked_full_width": blocked_rec,
              "schedules_full_width": sched_rec, "scale16_lane_launches": lanes16,
+             "scale16_store_launches": store16, "store_full_width": store_rec,
              "launches_by_path": by_path,
              "kernel_times": times, "kernels": kernels, "seconds": total_s}, indent=1))
     print(smi)

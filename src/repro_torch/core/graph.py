@@ -182,8 +182,9 @@ def bump_graph_version(g: Graph) -> int:
     return _token_counter
 
 
-def graph_cached(g: Graph, key: tuple, build):
-    """Memoized ``build()`` of a view of ``g``, keyed on
+def graph_cached(g, key: tuple, build):
+    """Memoized ``build()`` of a view of ``g`` (a :class:`Graph`, or an
+    :class:`EllGraph` whose blocked layout is memoized), keyed on
     ``(graph_token(g), *key)``.
 
     The memo holds a weak reference to ``g``, so retiring a graph frees its

@@ -2,7 +2,7 @@
 
   1. Voronoi cells (multi-source shortest paths)      voronoi.py
   2. distance graph G'1 (min cross-cell bridges)      distance_graph.py
-  3. MST G'2 of G'1 (Prim)                            mst.py
+  3. MST G'2 of G'1 (Prim or Borůvka)                mst.py
   4. bridge pruning to the MST pairs                  tree.py
   5. predecessor walk -> tree edges, total distance   tree.py
 
@@ -35,6 +35,16 @@ class SteinerResult:
     dmat: torch.Tensor  # (S*S,) distance-graph weights
 
 
+def mst_parent(dmat: torch.Tensor, S: int, mst_algo: str) -> torch.Tensor:
+    """The MST parent array of the (S*S,) upper-triangular pair table."""
+    wmat = dmat.view(S, S)
+    wmat = torch.minimum(wmat, wmat.T)  # symmetrize upper-triangular table
+    wmat.fill_diagonal_(float("inf"))
+    if mst_algo == "prim":
+        return mstmod.prim_dense(wmat)
+    return mstmod.boruvka_dense(wmat)
+
+
 def finish_pipeline(
     g: Graph,
     st: vmod.VoronoiState,
@@ -44,18 +54,10 @@ def finish_pipeline(
 ) -> SteinerResult:
     """Stages 2-5 (distance graph -> MST -> pruning -> walk) from converged
     Voronoi state."""
-    if mst_algo == "boruvka":
-        raise NotImplementedError(
-            "mst_algo='boruvka' is not ported yet: see ROADMAP.md, queue 1 "
-            "(modules to port)"
-        )
-    if mst_algo != "prim":
+    if mst_algo not in ("prim", "boruvka"):
         raise ValueError(f"unknown mst_algo: {mst_algo!r}")
     dmat, umat, vmat = dgmod.distance_graph(g, st, S)
-    wmat = dmat.view(S, S)
-    wmat = torch.minimum(wmat, wmat.T)  # symmetrize upper-triangular table
-    wmat.fill_diagonal_(float("inf"))
-    parent = mstmod.prim_dense(wmat)
+    parent = mst_parent(dmat, S, mst_algo)
     tree = treemod.extract_tree(g.n, st, dmat, umat, vmat, parent, S)
     return SteinerResult(tree=tree, state=st, stats=stats, parent=parent, dmat=dmat)
 

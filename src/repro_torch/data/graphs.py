@@ -1,117 +1,23 @@
-"""Host-side RMAT graphs and seed selection, numpy-identical to ``repro``.
+"""Host-side graph generators and seed selection, numpy-identical to ``repro``.
 
-This package keeps its own copy of the generator: ``rmat_edges(s, f,
-seed=x)`` here and in ``repro.data.graphs`` are the same graph, edge for
-edge, so both packages compute on the same inputs.
+A copy of ``repro.data.graphs``: ``rmat_edges(s, f, seed=x)`` here and
+there are the same graph, edge for edge (the chunked generator lives in
+:mod:`repro_torch.graphstore.ingest`), and so are the Erdős–Rényi and grid
+graphs and the paper's four seed-selection strategies (§V, §V-E):
+BFS-level, uniform-random, eccentric (k-BFS) and proximate.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 
-Chunk = Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]
-
-# Fixed logical generation block: RMAT content is invariant to how chunks
-# are regrouped because randomness is keyed per block, not per chunk.
-DEFAULT_BLOCK_EDGES = 1 << 16
-DEFAULT_CHUNK_EDGES = 1 << 16
-
-
-class RmatEdgeSource:
-    """Chunked RMAT (Graph500-style) scale-free weighted edge stream.
-
-    n = 2**scale vertices, ~edge_factor*n undirected edges, a global id
-    permutation breaking the id-degree correlation, self-loops dropped,
-    integer weights uniform in [1, max_weight], and (``connect=True``) a
-    random path threaded through all vertices so the graph is one component.
-
-    Randomness is drawn from per-purpose :class:`numpy.random.SeedSequence`
-    streams: ``(seed, 0)`` for the id permutation, ``(seed, 1)`` for the
-    connect path, ``(seed, 2 + i)`` for edge block i.
-    """
-
-    def __init__(
-        self,
-        scale: int,
-        edge_factor: int,
-        *,
-        a: float = 0.57,
-        b: float = 0.19,
-        c: float = 0.19,
-        max_weight: int = 100,
-        seed: int = 0,
-        connect: bool = True,
-        chunk_edges: int = DEFAULT_CHUNK_EDGES,
-        block_edges: int = DEFAULT_BLOCK_EDGES,
-    ):
-        if not (0 < a and 0 <= b and 0 <= c and a + b + c < 1):
-            raise ValueError(f"bad RMAT probabilities a={a} b={b} c={c}")
-        self.scale = int(scale)
-        self.edge_factor = int(edge_factor)
-        self.a, self.b, self.c = a, b, c
-        self.max_weight = int(max_weight)
-        self.seed = int(seed)
-        self.connect = bool(connect)
-        self.chunk_edges = int(chunk_edges)
-        self.block_edges = int(block_edges)
-        self.n = 1 << self.scale
-        self.m_target = self.edge_factor * self.n
-
-    def _perm(self) -> np.ndarray:
-        rng = np.random.default_rng(np.random.SeedSequence((self.seed, 0)))
-        return rng.permutation(self.n)
-
-    def _block(self, i: int, lo: int, hi: int, perm: np.ndarray) -> Chunk:
-        """Edges [lo, hi) of the logical stream (one RMAT block)."""
-        rng = np.random.default_rng(np.random.SeedSequence((self.seed, 2 + i)))
-        m = hi - lo
-        src = np.zeros(m, np.int64)
-        dst = np.zeros(m, np.int64)
-        a, b, c = self.a, self.b, self.c
-        for lvl in range(self.scale):
-            r = rng.random(m)
-            go_right_src = ((r >= a + b) & (r < a + b + c)) | (r >= a + b + c)
-            go_right_dst = ((r >= a) & (r < a + b)) | (r >= a + b + c)
-            src += go_right_src.astype(np.int64) << lvl
-            dst += go_right_dst.astype(np.int64) << lvl
-        src, dst = perm[src], perm[dst]
-        keep = src != dst
-        src, dst = src[keep], dst[keep]
-        w = rng.integers(1, self.max_weight + 1, size=src.shape[0])
-        return src.astype(np.int32), dst.astype(np.int32), w.astype(np.float32)
-
-    def _path_chunks(self) -> Iterator[Chunk]:
-        rng = np.random.default_rng(np.random.SeedSequence((self.seed, 1)))
-        path = rng.permutation(self.n)
-        for lo in range(0, self.n - 1, self.block_edges):
-            hi = min(lo + self.block_edges, self.n - 1)
-            w = rng.integers(1, self.max_weight + 1, size=hi - lo)
-            yield (
-                path[lo:hi].astype(np.int32),
-                path[lo + 1 : hi + 1].astype(np.int32),
-                w.astype(np.float32),
-            )
-
-    def _blocks(self) -> Iterator[Chunk]:
-        perm = self._perm()
-        for i, lo in enumerate(range(0, self.m_target, self.block_edges)):
-            yield self._block(i, lo, min(lo + self.block_edges, self.m_target), perm)
-        if self.connect:
-            yield from self._path_chunks()
-
-    def __iter__(self) -> Iterator[Chunk]:
-        yield from _regroup(self._blocks(), self.chunk_edges)
-
-
-def _regroup(blocks: Iterator[Chunk], chunk_edges: int) -> Iterator[Chunk]:
-    """Re-slices a chunk stream to ~chunk_edges per yield (the edge sequence
-    is unchanged, only the cut points move)."""
-    for s, d, w in blocks:
-        for lo in range(0, s.shape[0], chunk_edges):
-            hi = min(lo + chunk_edges, s.shape[0])
-            yield s[lo:hi], d[lo:hi], None if w is None else w[lo:hi]
+from repro_torch.graphstore.ingest import (
+    ArraySource,
+    RmatEdgeSource,
+    csr_from_chunks,
+)
 
 
 def rmat_edges(
@@ -142,6 +48,61 @@ def rmat_edges(
     return src, dst, w, source.n
 
 
+def er_edges(
+    n: int, p: float, *, max_weight: int = 100, seed: int = 0, connect: bool = True
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """Erdős–Rényi G(n, p) with integer weights (test-scale)."""
+    rng = np.random.default_rng(seed)
+    iu = np.triu_indices(n, k=1)
+    keep = rng.random(iu[0].shape[0]) < p
+    src, dst = iu[0][keep].astype(np.int32), iu[1][keep].astype(np.int32)
+    if connect:
+        path = rng.permutation(n).astype(np.int32)
+        src = np.concatenate([src, path[:-1]])
+        dst = np.concatenate([dst, path[1:]])
+    w = rng.integers(1, max_weight + 1, size=src.shape[0]).astype(np.float32)
+    return src, dst, w, n
+
+
+def grid_edges(
+    rows: int, cols: int, *, max_weight: int = 10, seed: int = 0
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """2D grid graph (deterministic structure, random weights)."""
+    rng = np.random.default_rng(seed)
+    n = rows * cols
+    src, dst = [], []
+    for r in range(rows):
+        for c in range(cols):
+            v = r * cols + c
+            if c + 1 < cols:
+                src.append(v)
+                dst.append(v + 1)
+            if r + 1 < rows:
+                src.append(v)
+                dst.append(v + cols)
+    src = np.asarray(src, np.int32)
+    dst = np.asarray(dst, np.int32)
+    w = rng.integers(1, max_weight + 1, size=src.shape[0]).astype(np.float32)
+    return src, dst, w, n
+
+
+# ----------------------------------------------------------------------------
+# Seed selection (paper §V "Seed Vertex Selection" and §V-E alternatives)
+# ----------------------------------------------------------------------------
+
+
+def _bfs_levels(n: int, src: np.ndarray, dst: np.ndarray, root: int) -> np.ndarray:
+    """(n,) f64 hop distance of every vertex from ``root`` (+inf when
+    unreached) over the symmetrized edge list."""
+    import scipy.sparse as sp
+    import scipy.sparse.csgraph as csg
+
+    m = sp.coo_matrix(
+        (np.ones(2 * src.shape[0]), (np.r_[src, dst], np.r_[dst, src])), shape=(n, n)
+    ).tocsr()
+    return csg.shortest_path(m, unweighted=True, indices=root)
+
+
 def select_seeds(
     n: int,
     src: np.ndarray,
@@ -151,15 +112,57 @@ def select_seeds(
     strategy: str = "bfs_level",
     seed: int = 0,
 ) -> np.ndarray:
-    """``k`` distinct seed vertices drawn uniformly at random.
+    """The paper's seed selection strategies (the reference's draws).
 
-    Only ``strategy="uniform"`` is ported; the other strategies of
-    ``repro.data.graphs`` (whose default, ``"bfs_level"``, this signature
-    keeps) raise.  ``src``/``dst`` are accepted for signature parity.
+    bfs_level: random vertices stratified by BFS level frequency (the
+      paper's default: avoids directly connected seeds dominating).
+    uniform:   uniform random.
+    eccentric: k-BFS heuristic, each pick the vertex maximizing the sum of
+      BFS distances to the previous picks.
+    proximate: the same, minimizing (seeds close together).
     """
-    if strategy != "uniform":
-        raise NotImplementedError(
-            f"seed strategy {strategy!r} is not ported yet (only 'uniform')"
-        )
     rng = np.random.default_rng(seed)
-    return rng.choice(n, size=k, replace=False).astype(np.int32)
+    if strategy == "uniform":
+        return rng.choice(n, size=k, replace=False).astype(np.int32)
+    if strategy == "bfs_level":
+        root = int(rng.integers(n))
+        d = _bfs_levels(n, src, dst, root)
+        d = np.where(np.isfinite(d), d, -1).astype(np.int64)
+        picks = []
+        levels, counts = np.unique(d[d >= 0], return_counts=True)
+        # sample per level proportionally to its population
+        quota = np.maximum(1, (counts / counts.sum() * k)).astype(np.int64)
+        for lvl, q in zip(levels, quota):
+            pool = np.nonzero(d == lvl)[0]
+            take = min(len(pool), int(q))
+            picks.append(rng.choice(pool, size=take, replace=False))
+        flat = np.concatenate(picks)
+        rng.shuffle(flat)
+        if len(flat) < k:  # top up uniformly
+            extra = np.setdiff1d(np.nonzero(d >= 0)[0], flat)
+            flat = np.concatenate([flat, rng.choice(extra, k - len(flat), replace=False)])
+        return flat[:k].astype(np.int32)
+    if strategy in ("eccentric", "proximate"):
+        root = int(rng.integers(n))
+        picks = [root]
+        total = _bfs_levels(n, src, dst, root)
+        total = np.where(np.isfinite(total), total, 0.0)
+        for _ in range(k - 1):
+            masked = total.copy()
+            masked[picks] = -np.inf if strategy == "eccentric" else np.inf
+            nxt = int(np.argmax(masked) if strategy == "eccentric" else np.argmin(masked))
+            picks.append(nxt)
+            d = _bfs_levels(n, src, dst, nxt)
+            total = total + np.where(np.isfinite(d), d, 0.0)
+        return np.asarray(picks, np.int32)
+    raise ValueError(f"unknown strategy {strategy!r}")
+
+
+def build_csr(n: int, src: np.ndarray, dst: np.ndarray):
+    """(indptr, indices) of the symmetrized adjacency, through the one CSR
+    builder (:func:`repro_torch.graphstore.ingest.csr_from_chunks`) with the
+    whole edge list as one chunk: within a row, all forward edges in input
+    order, then all reverse edges."""
+    source = ArraySource(src, dst, None, n, chunk_edges=max(1, len(src)))
+    indptr, indices, _ = csr_from_chunks(n, source, symmetrize=True)
+    return indptr, indices

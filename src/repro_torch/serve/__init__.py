@@ -4,8 +4,9 @@
 * :mod:`repro_torch.serve.plan`   - canonicalization, shape buckets, padding
 * :mod:`repro_torch.serve.engine` - micro-batching scheduler + LRU cache
 
-Every batch mode ("dense", "bucket", "pallas") serves; only in-memory graphs
-are ported (see ROADMAP.md).
+Every batch mode ("dense", "bucket", "pallas") serves, over an in-memory
+graph or a graph store (``graph_path=``), whose edge deltas the server
+follows epoch by epoch (``apply_deltas``).
 """
 
 from repro_torch.serve.batch import steiner_tree_batch

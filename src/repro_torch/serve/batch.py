@@ -38,7 +38,7 @@ def steiner_tree_batch(
       num_seeds: S (defaults to seeds.shape[1]).
       mode: Voronoi schedule, "dense" | "bucket" | "pallas" (the min-plus
         kernel path; its ELL view is memoized on first use).
-      mst_algo: "prim" ("boruvka" is not ported).
+      mst_algo: "prim" | "boruvka".
       delta: bucket width of mode="bucket".
       max_iters: safety cap on relaxation rounds.
 

@@ -18,13 +18,19 @@ or one-shot: ``server.query([3, 17, 42])``.  Counters (QPS, p50/p99
 latency, cache hit rate, padding waste) via ``server.stats()``.
 
 The server runs on ``device="cuda"`` unless given another device, in every
-mode of the batch backend ("dense", "bucket" by default, "pallas").  Only
-in-memory :class:`~repro_torch.core.graph.Graph` inputs are ported:
-store-backed servers (``graph_path=``, a graph store as ``g``),
-``apply_deltas``, ``bump_epoch`` and the warm re-solve raise
-``NotImplementedError`` (see ROADMAP.md).  ``stats()`` keeps the
-reference's keys; their epoch fields stay at the in-memory values (epoch
-None, counters 0).
+mode of the batch backend ("dense", "bucket" by default, "pallas").
+
+Store-backed servers (``graph_path=`` or a
+:class:`~repro_torch.graphstore.GraphStore` as ``g``) are *epoch-aware*:
+:meth:`SteinerServer.apply_deltas` appends edge deltas to the store's log
+(:mod:`repro_torch.delta`), refreshes the solver handle, and re-validates
+the result cache against the changed vertices instead of flushing it.  An
+entry whose converged Voronoi labels show every changed vertex unreached is
+still exact and keeps serving; the rest are evicted (counted in
+``cache_invalidations_total``) and, on their next query, re-solved *warm*
+from the retained per-key Voronoi state
+(:func:`repro_torch.delta.resolve.reset_affected`), so only the affected
+cells are relaxed again.  ``stats()`` keeps the reference's keys.
 """
 
 from __future__ import annotations
@@ -32,22 +38,21 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
+from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.graph import Graph
 from repro_torch.core.tree import tree_edge_sets
+from repro_torch.core.voronoi import VoronoiState
+from repro_torch.delta.log import append_deltas, read_segment
+from repro_torch.delta.resolve import entry_survives, reset_affected
+from repro_torch.graphstore.loader import GraphStore, open_store
 from repro_torch.obs import MetricsRegistry
 from repro_torch.serve import plan as planmod
 from repro_torch.solver import SolverConfig, SteinerSolver
 from repro_torch.solver.registry import to_host
-
-_STORES_NOT_PORTED = (
-    "store-backed serving (graph stores, deltas, epochs, warm re-solves) is "
-    "not ported yet: see ROADMAP.md"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +68,9 @@ class ServeConfig:
     delta: Optional[float] = None
     max_iters: Optional[int] = None
     materialize_edges: bool = False  # host-side edge sets in results
-    # retained per-key Voronoi states of store-backed servers (not ported)
+    # retained per-key Voronoi states for warm affected-cell re-solves after
+    # apply_deltas (store-backed servers; 0 disables retention and every
+    # invalidated entry re-solves cold through the batch path)
     state_capacity: int = 64
 
 
@@ -109,6 +116,14 @@ class LRUCache:
         while len(self._d) > self.capacity:
             self._d.popitem(last=False)
 
+    def keys(self) -> List[Tuple[int, ...]]:
+        """Snapshot of resident keys (for the epoch-bump validity scan)."""
+        return list(self._d.keys())
+
+    def pop(self, key) -> None:
+        """Evicts one entry (no-op when absent)."""
+        self._d.pop(key, None)
+
     def __contains__(self, key) -> bool:
         return key in self._d
 
@@ -124,15 +139,20 @@ class _Pending:
 
 
 class SteinerServer:
-    """Batched Steiner query server over one resident :class:`Graph`.
+    """Batched Steiner query server over one resident graph.
 
-    ``g`` is moved to ``device`` once, where the prepared ``"batch"``
-    handle keeps it and its ELL view for every micro-batch.
+    The graph comes from memory (``g``, a :class:`Graph`) or off disk
+    (``graph_path`` naming a ``.gstore`` directory, or a
+    :class:`~repro_torch.graphstore.GraphStore` as ``g``).  It is placed on
+    ``device`` once, where the prepared ``"batch"`` handle keeps it and its
+    ELL view for every micro-batch.  Hub-sorted stores stay transparent:
+    the handle translates submitted ORIGINAL seed ids through the store's
+    ``vertex_perm`` (``materialize_edges`` output is in stored ids).
     """
 
     def __init__(
         self,
-        g: Optional[Graph] = None,
+        g: Union[Graph, GraphStore, None] = None,
         config: ServeConfig = ServeConfig(),
         *,
         graph_path: Optional[str] = None,
@@ -141,7 +161,7 @@ class SteinerServer:
         if (g is None) == (graph_path is None):
             raise ValueError("pass exactly one of g= or graph_path=")
         if graph_path is not None:
-            raise NotImplementedError(f"graph_path=: {_STORES_NOT_PORTED}")
+            g = open_store(graph_path)
         self.config = config
         # one prepared solver handle: every micro-batch goes to the "batch"
         # backend (the handle validates the mode and the graph type)
@@ -156,8 +176,23 @@ class SteinerServer:
             ),
             device=device,
         ).prepare(g)
-        self.g = self._handle.graph  # the resident graph, on the device
-        self.epoch = None  # in-memory graphs have no delta epoch
+        self.g = self._handle.graph  # the resident COO graph, on the device
+        # epoch awareness: store-backed servers track the delta-log epoch
+        # and keep per-key converged Voronoi states for warm re-solves
+        self._store = g if isinstance(g, GraphStore) else None
+        self.epoch = self._handle.epoch  # None for in-memory graphs
+        perm = None if self._store is None else self._store.vertex_perm
+        self._vertex_perm = None if perm is None else np.asarray(perm)
+        # key -> (epoch, bucket, dist, lab, pred) host snapshots of the
+        # converged state, LRU-bounded by config.state_capacity
+        self._states: "collections.OrderedDict[Tuple[int, ...], tuple]" = (
+            collections.OrderedDict()
+        )
+        # (from_epoch, to_epoch, changed | None) per bump_epoch call: warm
+        # re-solves union the changed sets since a state's epoch; a None
+        # entry (unknown changed set) blocks warm starts across it
+        self._changed_log: List[Tuple[int, int, Optional[np.ndarray]]] = []
+        self._warm_handle = None  # lazy single-backend handle on self.g
         self.cache = LRUCache(config.cache_capacity)
         self._queues: Dict[int, "collections.deque[_Pending]"] = {
             b: collections.deque() for b in sorted(config.buckets)
@@ -201,7 +236,6 @@ class SteinerServer:
             )
             for b in config.buckets
         }
-        # the reference's epoch series, at their in-memory values
         self._m_invalidated = self.metrics.counter(
             "cache_invalidations_total",
             "cache entries evicted by an epoch bump (deltas touched a cell)",
@@ -217,7 +251,7 @@ class SteinerServer:
         self._g_epoch = self.metrics.gauge(
             "delta_epoch", "delta-log epoch this server is serving"
         )
-        self._g_epoch.set(0.0)
+        self._g_epoch.set(float(self.epoch or 0))
         self._g_pad_waste = self.metrics.gauge(
             "serve_pad_waste",
             "fraction of executed lanes that were padding",
@@ -258,14 +292,183 @@ class SteinerServer:
         return sum(len(q) for q in self._queues.values())
 
     # ------------------------------------------------------------------
-    # mutation (store-backed servers, not ported)
+    # mutation (store-backed servers)
     # ------------------------------------------------------------------
 
     def apply_deltas(self, records: Sequence, *, map_ids: bool = True) -> dict:
-        raise NotImplementedError(f"apply_deltas: {_STORES_NOT_PORTED}")
+        """Appends edge deltas to the backing store and bumps the epoch.
+
+        One call = one log segment (:func:`repro_torch.delta.append_deltas`)
+        + one :meth:`bump_epoch` with that segment's exact changed-vertex
+        set: the solver handle refreshes, surviving cache entries keep
+        serving, the rest are evicted and later re-solved warm.
+
+        Returns the :meth:`bump_epoch` report plus ``"records"``.
+        """
+        if self._store is None:
+            raise ValueError(
+                "apply_deltas needs a store-backed server "
+                "(graph_path= or a GraphStore as g)"
+            )
+        info = append_deltas(self._store, records, map_ids=map_ids)
+        seg = read_segment(self._store.path / info["file"], info["epoch"])
+        # endpoints are already in stored-id space (append mapped them), the
+        # id space of the retained Voronoi labels
+        changed = np.unique(np.concatenate([seg.u, seg.v]).astype(np.int64))
+        report = self.bump_epoch(changed)
+        report["records"] = info["count"]
+        return report
 
     def bump_epoch(self, changed: Optional[Sequence[int]] = None) -> dict:
-        raise NotImplementedError(f"bump_epoch: {_STORES_NOT_PORTED}")
+        """Adopts the store's current epoch; re-validates the cache.
+
+        ``changed`` is the union of delta-record endpoints (stored ids)
+        appended since this server's epoch.  Every cached entry whose
+        retained converged labels show ALL changed vertices unreached (the
+        S sentinel) is still exact and keeps serving with its state stamp
+        advanced.  Every other entry (entries whose state was LRU-dropped
+        included) is evicted and counted in ``cache_invalidations_total``.
+        ``changed=None`` means "unknown": the whole cache is flushed and
+        warm starts across this bump are disabled.
+
+        Call this directly only after mutating the store externally;
+        :meth:`apply_deltas` does the whole round in-process.
+        """
+        if self._store is None:
+            raise ValueError(
+                "bump_epoch needs a store-backed server "
+                "(graph_path= or a GraphStore as g)"
+            )
+        prev = self.epoch
+        refreshed = self._handle.refresh()
+        self.epoch = refreshed["epoch"]
+        # the resident graph and the warm handle bound to it are
+        # epoch-dependent: rebind both to the refreshed artifacts
+        self.g = self._handle.graph
+        self._warm_handle = None
+        if changed is not None:
+            changed = np.unique(np.asarray(changed, np.int64))
+        self._changed_log.append((prev, self.epoch, changed))
+        invalidated = revalidated = 0
+        for key, rec in list(self._states.items()):
+            epoch0, bucket, dist, lab, pred = rec
+            if changed is not None and epoch0 == prev and entry_survives(lab, changed, bucket):
+                # still the exact fixpoint at the new epoch
+                self._states[key] = (self.epoch, bucket, dist, lab, pred)
+                if key in self.cache:
+                    revalidated += 1
+        for key in self.cache.keys():
+            rec = self._states.get(key)
+            if rec is None or rec[0] != self.epoch:
+                self.cache.pop(key)
+                invalidated += 1
+        self._m_invalidated.inc(invalidated)
+        self._m_revalidated.inc(revalidated)
+        self._g_epoch.set(float(self.epoch or 0))
+        return {
+            "epoch": self.epoch,
+            "from_epoch": prev,
+            "invalidated": invalidated,
+            "revalidated": revalidated,
+            "refreshed": refreshed["refreshed"],
+        }
+
+    def _changed_since(self, epoch0: int) -> Optional[np.ndarray]:
+        """Union of changed vertices over epochs (epoch0, self.epoch]; None
+        when the log does not cover that range (a warm start is unsound)."""
+        if epoch0 == self.epoch:
+            return np.empty(0, np.int64)
+        parts = []
+        lo = None
+        for fr, to, ch in self._changed_log:
+            if to <= epoch0:
+                continue
+            if ch is None:
+                return None
+            parts.append(ch)
+            lo = fr if lo is None else min(lo, fr)
+        if lo is None or lo > epoch0:
+            return None  # gap: the state predates the retained log
+        return np.unique(np.concatenate(parts))
+
+    def _store_state(self, key, bucket: int, dist, lab, pred) -> None:
+        """Retains one converged Voronoi state (host copies, current epoch)."""
+        if self._store is None or self.config.state_capacity <= 0:
+            return
+        self._states[key] = (
+            self.epoch,
+            int(bucket),
+            dist.cpu().numpy(),
+            lab.cpu().numpy(),
+            pred.cpu().numpy(),
+        )
+        self._states.move_to_end(key)
+        while len(self._states) > self.config.state_capacity:
+            self._states.popitem(last=False)
+
+    def _warm_prepared(self):
+        """Lazy single-backend handle over the resident graph for warm
+        affected-cell re-solves (rebuilt after every epoch bump): mode
+        "dense" or "bucket" as served, "dense" for "pallas", which takes no
+        warm start."""
+        if self._warm_handle is None:
+            mode = self.config.mode if self.config.mode in ("dense", "bucket") else "dense"
+            self._warm_handle = SteinerSolver(
+                SolverConfig(
+                    backend="single",
+                    mode=mode,
+                    mst_algo=self.config.mst_algo,
+                    delta=self.config.delta,
+                    max_iters=self.config.max_iters,
+                ),
+                device=self._handle.device,
+            ).prepare(self.g)
+        return self._warm_handle
+
+    def _warm_resolve(self, plan: planmod.QueryPlan) -> Optional[QueryResult]:
+        """Re-solves one invalidated query warm from its retained state.
+
+        Resets only the delta-affected Voronoi cells
+        (:func:`repro_torch.delta.resolve.reset_affected`) and relaxes from
+        there: bit-exact against a cold solve, but the kept cells start
+        converged.  Returns None (the caller falls through to a cold batch
+        lane) when no usable state is retained.
+        """
+        if self._store is None or self.config.state_capacity <= 0:
+            return None
+        if self.config.materialize_edges:
+            return None  # edge materialization runs on the batch path
+        rec = self._states.get(plan.key)
+        if rec is None:
+            return None
+        epoch0, bucket, dist, lab, pred = rec
+        if bucket != plan.bucket:
+            return None
+        changed = self._changed_since(epoch0)
+        if changed is None:
+            return None
+        self._states.move_to_end(plan.key)
+        seeds = plan.padded.astype(np.int64)
+        if self._vertex_perm is not None:
+            seeds = self._vertex_perm[seeds]
+        dev = self._handle.device
+        st = VoronoiState(*(torch.from_numpy(x).to(dev) for x in (dist, lab, pred)))
+        warm, _, _ = reset_affected(st, seeds, changed, bucket)
+        out = self._warm_prepared().solve(seeds.astype(np.int32), warm_state=warm)
+        result = QueryResult(
+            key=plan.key,
+            bucket=plan.bucket,
+            total_distance=float(out.total_distance),
+            num_edges=int(out.num_edges),
+            edges=None,
+            from_cache=False,
+            latency_s=0.0,
+        )
+        self.cache.put(plan.key, result)
+        s = out.raw.state
+        self._store_state(plan.key, bucket, s.dist, s.lab, s.pred)
+        self._m_warm.inc()
+        return result
 
     # ------------------------------------------------------------------
     # execution
@@ -320,15 +523,23 @@ class SteinerServer:
                 # already-cached tickets ride along without a lane.
                 lanes: List[np.ndarray] = []
                 lane_of: Dict[Tuple[int, ...], int] = {}
-                # (pending, cached result or None, from_cache)
+                # (pending, result or None, from_cache): None awaits the
+                # batch; a result with from_cache=False came from a warm
+                # re-solve during assembly
                 riders: List[Tuple[_Pending, Optional[QueryResult], bool]] = []
                 while queue and len(lanes) < B:
                     p = queue.popleft()
                     hit = self.cache.get(p.plan.key)
+                    from_cache = hit is not None
+                    if hit is None:
+                        # invalidated by an epoch bump but state retained:
+                        # re-solve warm (affected cells only) instead of
+                        # taking a cold batch lane
+                        hit = self._warm_resolve(p.plan)
                     if hit is None and p.plan.key not in lane_of:
                         lane_of[p.plan.key] = len(lanes)
                         lanes.append(p.plan.padded)
-                    riders.append((p, hit, hit is not None))
+                    riders.append((p, hit, from_cache))
                 t_assembled = time.perf_counter()
                 t_done = t_assembled
                 fresh_by_key: Dict[Tuple[int, ...], QueryResult] = {}
@@ -337,7 +548,7 @@ class SteinerServer:
                     while len(lanes) < B:  # inert batch-dim padding
                         lanes.append(lanes[0])
                     try:
-                        totals, nedges, edges, _ = self._execute(
+                        totals, nedges, edges, res = self._execute(
                             bucket, np.stack(lanes), n_real
                         )
                     except Exception:
@@ -354,6 +565,9 @@ class SteinerServer:
                     self._m_lanes.inc(B)
                     self._m_padded.inc(B - n_real)
                     self._g_pad_waste.set(self._m_padded.value / self._m_lanes.value)
+                    # the real lanes' converged states: the raw material for
+                    # warm re-solves after future epoch bumps
+                    capture = self._store is not None and self.config.state_capacity > 0
                     for key, i in lane_of.items():
                         fresh = QueryResult(
                             key=key,
@@ -366,12 +580,17 @@ class SteinerServer:
                         )
                         fresh_by_key[key] = fresh
                         self.cache.put(key, fresh)
+                        if capture:
+                            s = res.state
+                            self._store_state(key, bucket, s.dist[i], s.lab[i], s.pred[i])
                 for p, hit, from_cache in riders:
                     if hit is None:
                         hit = fresh_by_key[p.plan.key]
                         ready_at = t_done  # waited for the batch
                     else:
-                        ready_at = t_assembled  # cache hits were ready at assembly
+                        # cache hits and warm re-solves were ready once
+                        # assembly finished
+                        ready_at = t_assembled
                     if from_cache:
                         self._m_hits.inc()
                     self._m_completed.inc()
@@ -463,12 +682,13 @@ class SteinerServer:
             "lanes_padded": lanes_padded,
             "pad_waste": (lanes_padded / lanes_run if lanes_run else 0.0),
             "batches_per_bucket": {b: int(c.value) for b, c in self._m_batches.items()},
-            # delta-epoch serving state, at its in-memory values
+            # delta-epoch serving state (in-memory servers: epoch None,
+            # counters 0)
             "epoch": self.epoch,
             "cache_invalidations": int(self._m_invalidated.value),
             "cache_revalidations": int(self._m_revalidated.value),
             "warm_resolves": int(self._m_warm.value),
-            "retained_states": 0,
+            "retained_states": len(self._states),
         }
 
     def prometheus_text(self) -> str:

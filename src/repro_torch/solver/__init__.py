@@ -2,7 +2,9 @@
 
 ``backend="single"`` runs modes "dense", "bucket", "frontier" and "pallas"
 (with or without ``pallas_frontier``), ``backend="batch"`` modes "dense",
-"bucket" and "pallas"; the mesh backends are not ported yet.
+"bucket" and "pallas", each with ``mst_algo`` "prim" or "boruvka"; ``prepare``
+takes an in-memory graph or an on-disk graph store.  The mesh backends are
+not ported yet.
 """
 
 from repro_torch.solver import backends as _backends  # registers the backends

@@ -10,13 +10,16 @@ Usage::
     out.total_distance                    # D(G_S)
 
 ``SolverConfig(backend="batch", ...)`` takes a (B, S) seed batch instead and
-returns (B,) totals and edge counts.  The solver runs on
-``device="cuda"`` unless given another device; with no CUDA device present
-the default raises instead of running on the CPU.
+returns (B,) totals and edge counts.  ``prepare`` also takes an on-disk
+:class:`~repro_torch.graphstore.GraphStore` (from ``open_store``); such a
+handle follows the store's delta log with :meth:`PreparedGraph.refresh`.
+The solver runs on ``device="cuda"`` unless given another device; with no
+CUDA device present the default raises instead of running on the CPU.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.solver.config import SolverConfig
@@ -41,12 +44,21 @@ class PreparedGraph:
     Created by :meth:`SteinerSolver.prepare`; do not construct directly.
     """
 
-    def __init__(self, config: SolverConfig, backend, graph, artifacts, device):
+    def __init__(self, config: SolverConfig, backend, artifacts, device):
         self.config = config
-        self.graph = graph
         self.device = device
         self._backend = backend
         self._artifacts = artifacts
+        # the resident COO graph on the device (a store's, materialized)
+        self.graph = artifacts["graph"]
+        # delta-log epoch of a store at prepare time (None for in-memory
+        # graphs): refresh() compares it against the store's current epoch
+        store = artifacts.get("store")
+        self.epoch = None if store is None else store.epoch
+        # hub-sorted stores relabel vertices; solve() takes ORIGINAL ids
+        # and translates them through the persisted permutation
+        perm = None if store is None else store.vertex_perm
+        self._vertex_perm = None if perm is None else np.asarray(perm)
 
     @property
     def backend(self) -> str:
@@ -59,12 +71,37 @@ class PreparedGraph:
 
     def artifact(self, name: str):
         """One preprocessing artifact by name ("graph", "ell",
-        "blocked_layout"); None if absent."""
+        "blocked_layout", "store"); None if absent."""
         return self._artifacts.get(name)
+
+    def refresh(self) -> dict:
+        """Re-prepares what the store's delta log changed.
+
+        For a handle prepared from a :class:`~repro_torch.graphstore.GraphStore`
+        whose epoch moved on since prepare (``append_deltas``), this reloads
+        the store and rebuilds the epoch-dependent artifacts: the resident
+        COO graph, the ELL view and (with ``src_block`` on the card) the
+        blocked layout of that view.  Returns ``{"refreshed": (...),
+        "from_epoch", "epoch"}``; a no-op (same epoch, or an in-memory
+        graph) returns ``refreshed=()``.
+        """
+        store = self._artifacts.get("store")
+        if store is None:
+            return {"refreshed": (), "from_epoch": self.epoch, "epoch": self.epoch}
+        store.reload(verify=False)
+        if store.epoch == self.epoch:
+            return {"refreshed": (), "from_epoch": self.epoch, "epoch": store.epoch}
+        self._artifacts = self._backend.prepare(self.config, store, self.device)
+        self.graph = self._artifacts["graph"]
+        prev, self.epoch = self.epoch, store.epoch
+        return {"refreshed": tuple(sorted(k for k in self._artifacts if k != "store")),
+                "from_epoch": prev, "epoch": store.epoch}
 
     def solve(self, seeds, *, warm_state=None) -> SolveOutput:
         """Solves one query, (S,) seed ids, or a (B, S) batch for
-        backend="batch" (numpy, list or tensor).
+        backend="batch" (numpy, list or tensor), in the graph's original
+        vertex numbering: a handle prepared from a hub-sorted store
+        translates them through the store's ``vertex_perm``.
 
         ``warm_state``: optional :class:`~repro_torch.core.voronoi.VoronoiState`
         warm start (backend "single", modes "dense", "bucket" and
@@ -75,6 +112,10 @@ class PreparedGraph:
             raise ValueError(
                 f"warm_state is only supported by backend 'single', not {self.backend!r}"
             )
+        if self._vertex_perm is not None:
+            if isinstance(seeds, torch.Tensor):
+                seeds = seeds.cpu().numpy()
+            seeds = self._vertex_perm[np.asarray(seeds, np.int64)]
         seeds = torch.as_tensor(seeds, dtype=torch.int32, device=self.device)
         if seeds.dim() != self._backend.seeds_ndim:
             want = "(S,)" if self._backend.seeds_ndim == 1 else "(B, S)"
@@ -102,9 +143,8 @@ class SteinerSolver:
 
     def prepare(self, graph) -> PreparedGraph:
         """Runs the backend's one-time preprocessing for an in-memory
-        :class:`~repro_torch.core.graph.Graph` (moved to the solver's
-        device if it lives elsewhere)."""
+        :class:`~repro_torch.core.graph.Graph` (moved to the solver's device
+        if it lives elsewhere) or an on-disk
+        :class:`~repro_torch.graphstore.GraphStore` (materialized on it)."""
         artifacts = self._backend.prepare(self.config, graph, self.device)
-        return PreparedGraph(
-            self.config, self._backend, artifacts["graph"], artifacts, self.device
-        )
+        return PreparedGraph(self.config, self._backend, artifacts, self.device)

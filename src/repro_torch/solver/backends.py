@@ -16,14 +16,18 @@
             E-sized temporaries times B would not fit beside a full-width
             graph.  Every lane equals a single solve of its row bit for bit.
 
-With ``src_block`` set on the card, the resident schedule's blocked layout
-is built once per graph for one lane and once for a lane axis: by "single"
-in ``prepare`` (kept beside the ELL view), by "batch" at its first solve.
-The top-K schedules relax a new tile every round, whose layout the kernel's
-wrapper builds each round.
+``prepare`` takes an in-memory :class:`~repro_torch.core.graph.Graph` or
+an on-disk :class:`~repro_torch.graphstore.GraphStore`: a store is
+materialized once as the COO graph and, for the ELL modes, as an ELL view
+filled straight from its CSR with ``cfg.ell_pad_rows`` row padding.
 
-``mst_algo="boruvka"``, the mesh backends and graph-store inputs raise
-``NotImplementedError`` (see ROADMAP.md).
+With ``src_block`` set on the card, the resident schedule's blocked layout
+is built once per prepared ELL view for one lane and once for a lane axis:
+by "single" in ``prepare`` (kept beside the ELL view), by "batch" at its
+first solve.  The top-K schedules relax a new tile every round, whose
+layout the kernel's wrapper builds each round.
+
+The mesh backends raise ``NotImplementedError`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 from repro_torch.core import steiner as smod
 from repro_torch.core import voronoi as vmod
 from repro_torch.core.graph import EllGraph, Graph, ell_view_cached, graph_cached
+from repro_torch.graphstore.loader import GraphStore
 from repro_torch.kernels.minplus import ops as kops
 from repro_torch.solver.config import BACKEND_MODES, SolverConfig
 from repro_torch.solver.registry import (
@@ -50,15 +55,15 @@ from repro_torch.solver.registry import (
 NOT_PORTED = "not ported yet: see ROADMAP.md"
 
 
-def blocked_layout_cached(g: Graph, cfg: SolverConfig, lanes: int = 1):
-    """The blocked kernel's layout of ``g``'s ELL view for ``lanes`` query
-    lanes, built once per graph version, src_block and ``lanes > 1`` (one
-    layout serves every batch width); None without ``src_block`` or on the
-    CPU (:func:`~repro_torch.kernels.minplus.ops.ell_layout`)."""
-    if cfg.src_block is None or g.device.type == "cpu":
+def blocked_layout_cached(ell: EllGraph, cfg: SolverConfig, lanes: int = 1):
+    """The blocked kernel's layout of the ELL view ``ell`` (the one the
+    kernel relaxes) for ``lanes`` query lanes, built once per ELL object,
+    src_block and ``lanes > 1`` (one layout serves every batch width); None
+    without ``src_block`` or on the CPU
+    (:func:`~repro_torch.kernels.minplus.ops.ell_layout`)."""
+    if cfg.src_block is None or ell.nbr.device.type == "cpu":
         return None
-    ell = ell_view_cached(g, cfg.ell_width)
-    return graph_cached(g, ("blocked", cfg.ell_width, cfg.src_block, lanes > 1),
+    return graph_cached(ell, ("blocked", cfg.src_block, lanes > 1),
                         lambda: kops.ell_layout(ell, cfg.src_block, lanes))
 
 
@@ -77,16 +82,24 @@ class _Backend:
             )
         if cfg.mode not in BACKEND_MODES[self.name]:
             raise ValueError(f"mode {cfg.mode!r} is not supported by backend {self.name!r}")
-        if cfg.mst_algo != "prim":
-            raise NotImplementedError(f"mst_algo={cfg.mst_algo!r}: {NOT_PORTED}")
 
     def prepare(self, cfg: SolverConfig, g, device: torch.device) -> dict:
         """Places the COO graph on ``device``, plus its ELL view when
-        ``cfg.mode`` is in :attr:`ell_modes`."""
+        ``cfg.mode`` is in :attr:`ell_modes`.
+
+        A :class:`GraphStore` is materialized once (its effective graph when
+        it carries deltas) and kept as the "store" artifact; its ELL view is
+        filled from the CSR with ``cfg.ell_pad_rows`` row padding.  An
+        in-memory graph's ELL view is the memoized ``ell_view_cached``.
+        """
+        if isinstance(g, GraphStore):
+            art = {"graph": g.to_graph(device=device), "store": g}
+            if cfg.mode in self.ell_modes:
+                art["ell"] = g.ell(cfg.ell_width, pad_rows_to=cfg.ell_pad_rows, device=device)
+            return art
         if not isinstance(g, Graph):
-            raise NotImplementedError(
-                f"prepare() of a {type(g).__name__}: only in-memory Graph "
-                f"inputs are ported ({NOT_PORTED})"
+            raise TypeError(
+                f"prepare() takes a Graph or a GraphStore, not a {type(g).__name__}"
             )
         g = g.to(device)
         art = {"graph": g}
@@ -95,12 +108,12 @@ class _Backend:
         return art
 
 
-def _resident_layout(g: Graph, cfg: SolverConfig, lanes: int = 1):
+def _resident_layout(ell: EllGraph, cfg: SolverConfig, lanes: int = 1):
     """The blocked layout of the resident kernel schedule (mode "pallas"
-    without ``pallas_frontier``), else None."""
+    without ``pallas_frontier``) over the ELL view it relaxes, else None."""
     if cfg.mode != "pallas" or cfg.pallas_frontier:
         return None
-    return blocked_layout_cached(g, cfg, lanes)
+    return blocked_layout_cached(ell, cfg, lanes)
 
 
 def _pallas_kw(cfg: SolverConfig) -> dict:
@@ -123,13 +136,15 @@ class SingleBackend(_Backend):
         """As :meth:`_Backend.prepare`, and with ``src_block`` on the card the
         resident kernel schedule's blocked layout ("blocked_layout")."""
         art = super().prepare(cfg, g, device)
-        art["blocked_layout"] = _resident_layout(art["graph"], cfg)
+        layout = _resident_layout(art.get("ell"), cfg)
+        if layout is not None:
+            art["blocked_layout"] = layout
         return art
 
     def solve(self, cfg, artifacts, seeds, num_seeds, warm_state=None) -> SolveOutput:
         res = self.solve_raw(
             cfg, artifacts["graph"], seeds, num_seeds, ell=artifacts.get("ell"),
-            layout=artifacts["blocked_layout"], init=warm_state,
+            layout=artifacts.get("blocked_layout"), init=warm_state,
         )
         st = res.stats
         td, ne, it, rlx, msg, hist = to_host(
@@ -184,7 +199,7 @@ class SingleBackend(_Backend):
             st, stats = kops.voronoi_cells_pallas_frontier(ell, seeds, **_pallas_kw(cfg))
         else:
             if layout is None:
-                layout = _resident_layout(g, cfg)
+                layout = _resident_layout(ell, cfg)
             st, stats = kops.voronoi_cells_pallas(ell, seeds, layout=layout, **_pallas_kw(cfg))
         return smod.finish_pipeline(g, st, stats, num_seeds, cfg.mst_algo)
 
@@ -255,7 +270,7 @@ class BatchBackend(_Backend):
             st, stats = kops.voronoi_cells_pallas_frontier_lanes(ell, seeds, **_pallas_kw(cfg))
         else:
             st, stats = kops.voronoi_cells_pallas_lanes(
-                ell, seeds, layout=_resident_layout(g, cfg, seeds.shape[0]), **_pallas_kw(cfg))
+                ell, seeds, layout=_resident_layout(ell, cfg, seeds.shape[0]), **_pallas_kw(cfg))
         lanes = []
         for b in range(seeds.shape[0]):
             lane_st = vmod.VoronoiState(dist=st.dist[b], lab=st.lab[b], pred=st.pred[b])

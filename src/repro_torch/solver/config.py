@@ -2,8 +2,8 @@
 
 The same fields, defaults and validation as ``repro.solver.config``, so one
 :class:`SolverConfig` value describes a solve in both packages.  This
-package runs every mode of ``backend="single"`` and ``backend="batch"``;
-the solver rejects the mesh backends and ``mst_algo="boruvka"`` (see
+package runs every mode of ``backend="single"`` and ``backend="batch"``
+with either MST algorithm; the solver rejects the mesh backends (see
 ROADMAP.md).  The device is not a config field: it is an argument of
 :class:`~repro_torch.solver.SteinerSolver`.
 """
@@ -38,7 +38,8 @@ class SolverConfig:
       delta: bucket width (mode="bucket").
       max_iters: cap on relaxation rounds (None -> 4n + 64).
       ell_width: ELL row width of the frontier/pallas view.
-      ell_pad_rows: ELL row padding for graph-store inputs.
+      ell_pad_rows: ELL row padding for graph-store inputs (spare rows the
+        delta layer's row surgery claims).
       frontier_size: top-K rows a round (frontier schedules).
       block_rows: work items of one thread block's tile (mode="pallas"):
         ELL rows (with ``src_block``, the layout's runs) for one query,

@@ -523,3 +523,133 @@ def test_default_server_on_card_matches_cpu(cuda):
         res[str(d)] = [(r.total_distance, r.num_edges, r.from_cache)
                        for r in srv.query_many(stream)]
     assert res[str(cuda)] == res["cpu"]
+
+
+def _mixed_records(rng, n, src, dst, k):
+    """k random add/delete/reweight records (deletes and reweights hit base
+    pairs)."""
+    recs = []
+    for _ in range(k):
+        kind = int(rng.integers(0, 3))
+        if kind == 0:
+            u, v = (int(x) for x in rng.integers(0, n, size=2))
+            recs.append(("add", u, v if u != v else (v + 1) % n, float(rng.integers(1, 50))))
+        else:
+            i = int(rng.integers(0, len(src)))
+            u, v = int(src[i]), int(dst[i])
+            recs.append(("delete", u, v) if kind == 1
+                        else ("reweight", u, v, float(rng.integers(1, 50))))
+    return recs
+
+
+@pytest.mark.parametrize("src_block", [None, 256])
+def test_store_prepared_pallas_on_card_matches_cpu(cuda, tmp_path, src_block):
+    """Scale 10 from a store with ell_pad_rows=256 (spare all-+inf rows): the
+    card's solve equals the CPU's and the in-memory graph's bit for bit; with
+    src_block the layout describes the store's padded ELL, is built once in
+    prepare and once more after refresh(), and one launch a round and slice
+    runs on it."""
+    from repro_torch.graphstore import ArraySource, build_store, open_store
+    from repro_torch.solver.backends import blocked_layout_cached
+
+    src, dst, w, n = rmat_edges(10, 8, max_weight=100, seed=0)
+    seeds = select_seeds(n, src, dst, 16, strategy="uniform", seed=1000)
+    path, _ = build_store(ArraySource(src, dst, w, n), tmp_path / "g.gstore")
+    cfg = SolverConfig(mode="pallas", ell_pad_rows=256, src_block=src_block)
+    out = {}
+    for d in (cuda, "cpu"):
+        b0 = tmp.blocked_layout.builds
+        h = SteinerSolver(cfg, device=d).prepare(open_store(path))
+        built = tmp.blocked_layout.builds - b0
+        n0 = (tmp.minplus_call.launches, tmp.minplus_blocked_call.launches)
+        o = h.solve(seeds)
+        grew = (tmp.minplus_call.launches - n0[0], tmp.minplus_blocked_call.launches - n0[1])
+        out[str(d)] = (h, o, built, grew)
+    (h, a, built, grew), (_, b, _, _) = out[str(cuda)], out["cpu"]
+    ell = h.artifact("ell")
+    assert ell.nbr.shape[0] % 256 == 0
+    rounds = a.telemetry.iterations
+    if src_block is None:
+        assert (built, grew) == (0, (rounds, 0))
+    else:
+        layout = h.artifact("blocked_layout")
+        assert built == 1 and layout.rows == ell.nbr.shape[0]
+        assert blocked_layout_cached(ell, cfg) is layout
+        assert grew == (0, rounds * len(layout.slices))
+    mem = SteinerSolver(cfg, device=cuda).prepare(
+        from_edges(src, dst, w, n, pad_to=8, device=cuda)).solve(seeds)
+    for other in (b, mem):
+        for f in ("dist", "lab", "pred"):
+            assert torch.equal(getattr(a.raw.state, f).cpu(), getattr(other.raw.state, f).cpu())
+        assert torch.equal(a.raw.parent.cpu(), other.raw.parent.cpu())
+        assert (a.total_distance, a.num_edges) == (other.total_distance, other.num_edges)
+    # after an epoch the layout is rebuilt from the refreshed ELL
+    from repro_torch.delta import append_deltas
+
+    append_deltas(path, _mixed_records(np.random.default_rng(0), n, src, dst, 20))
+    b0 = tmp.blocked_layout.builds
+    rep = h.refresh()
+    assert rep["epoch"] == 1 and "ell" in rep["refreshed"]
+    assert tmp.blocked_layout.builds - b0 == (0 if src_block is None else 1)
+    fresh = SteinerSolver(cfg, device="cpu").prepare(open_store(path)).solve(seeds)
+    again = h.solve(seeds)
+    assert (again.total_distance, again.num_edges) == (fresh.total_distance, fresh.num_edges)
+    assert torch.equal(again.raw.state.dist.cpu(), fresh.raw.state.dist)
+
+
+@pytest.mark.parametrize("mst_algo", ["prim", "boruvka"])
+def test_incremental_session_on_card_matches_cpu(cuda, tmp_path, mst_algo):
+    """Scale 10, two epochs: the session on the card equals the CPU's (state,
+    MST parent, pair tables, EpochResult) and a cold frontier solve."""
+    import dataclasses
+
+    from repro_torch.delta import IncrementalSession
+    from repro_torch.graphstore import ArraySource, build_store, open_store
+
+    src, dst, w, n = rmat_edges(10, 8, max_weight=100, seed=0)
+    seeds = select_seeds(n, src, dst, 16, strategy="uniform", seed=1000)
+    sess = {}
+    for d in (cuda, "cpu"):
+        path, _ = build_store(ArraySource(src, dst, w, n), tmp_path / f"{d}.gstore")
+        sess[str(d)] = IncrementalSession(open_store(path), seeds, ell_pad_rows=256,
+                                          frontier_size=64, mst_algo=mst_algo, device=d)
+    a, b = sess[str(cuda)], sess["cpu"]
+    rng = np.random.default_rng(1)
+    for _ in range(2):
+        recs = _mixed_records(rng, n, src, dst, 30)
+        ra, rb = a.apply_deltas(recs), b.apply_deltas(recs)
+        assert dataclasses.asdict(ra) == dataclasses.asdict(rb)
+        for f in ("dist", "lab", "pred"):
+            assert torch.equal(getattr(a.state, f).cpu(), getattr(b.state, f))
+        assert np.array_equal(a.parent, b.parent) and np.array_equal(a.dmat, b.dmat)
+    cold = SteinerSolver(SolverConfig(mode="frontier", frontier_size=64, mst_algo=mst_algo),
+                         device=cuda).prepare(a.store).solve(seeds)
+    assert (cold.total_distance, cold.num_edges) == (ra.total_distance, ra.num_edges)
+    assert np.array_equal(cold.raw.parent.cpu().numpy(), a.parent)
+
+
+def test_boruvka_on_card_matches_cpu(cuda):
+    """Borůvka's parent on the card equals the CPU's on random, tie-heavy
+    and disconnected pair tables, and through the solver."""
+    from repro_torch.core.mst import boruvka_dense
+
+    rng = np.random.default_rng(0)
+    for S in (2, 17, 64, 300):
+        for kind in range(3):
+            W = (rng.random((S, S)) if kind == 0 else rng.integers(1, 4, (S, S))).astype(np.float32)
+            if kind == 2:
+                W[rng.random((S, S)) < 0.9] = np.inf
+            W = np.minimum(W, W.T)
+            np.fill_diagonal(W, np.inf)
+            want = boruvka_dense(torch.from_numpy(W))
+            assert torch.equal(boruvka_dense(torch.from_numpy(W).to(cuda)).cpu(), want)
+    src, dst, w, n = rmat_edges(10, 8, max_weight=100, seed=0)
+    seeds = select_seeds(n, src, dst, 64, strategy="uniform", seed=1000)
+    out = {}
+    for d in (cuda, "cpu"):
+        g = from_edges(src, dst, w, n, pad_to=8, device=d)
+        out[str(d)] = SteinerSolver(SolverConfig(mode="pallas", mst_algo="boruvka"),
+                                    device=d).prepare(g).solve(seeds)
+    a, b = out[str(cuda)], out["cpu"]
+    assert torch.equal(a.raw.parent.cpu(), b.raw.parent)
+    assert (a.total_distance, a.num_edges) == (b.total_distance, b.num_edges)

@@ -35,8 +35,16 @@ def test_uniform_seeds_identical(n, k, seed):
 
 
 def test_other_seed_strategies_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tdata.select_seeds(16, np.zeros(1), np.zeros(1), 4)
+    """Every strategy is ported now: each draws the reference's seeds, and
+    an unknown strategy raises as there."""
+    src, dst, _, n = jdata.rmat_edges(7, 4, seed=5)
+    for strategy in ("bfs_level", "eccentric", "proximate"):
+        a = jdata.select_seeds(n, src, dst, 9, strategy=strategy, seed=2)
+        b = tdata.select_seeds(n, src, dst, 9, strategy=strategy, seed=2)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="unknown strategy"):
+        tdata.select_seeds(16, np.zeros(1), np.zeros(1), 4, strategy="central")
 
 
 def test_rmat_source_regroup_invariant():

@@ -388,7 +388,7 @@ def test_src_block_builds_the_layout_once():
         cfg = SolverConfig(backend=backend, mode="pallas", src_block=256)
         h = SteinerSolver(cfg, device="cpu").prepare(g)
         assert h.artifact("blocked_layout") is None
-        assert blocked_layout_cached(h.graph, cfg, 3) is None
+        assert blocked_layout_cached(h.artifact("ell"), cfg, 3) is None
         want = SteinerSolver(cfg.replace(src_block=None), device="cpu").prepare(g).solve(q)
         got = h.solve(q)
         assert np.array_equal(np.asarray(got.total_distance), np.asarray(want.total_distance))

@@ -150,8 +150,72 @@ def test_whole_tail_from_port_fixpoint():
 
 
 def test_boruvka_not_ported():
-    (_, _, _, _, seeds), _, tg, _, _, tst = _converged(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteiner.finish_pipeline(tg, tst, None, len(seeds), mst_algo="boruvka")
+    """Borůvka is ported: the whole tail with it equals the reference's
+    (MST parent and tree), and an unknown algorithm still raises."""
+    (_, _, _, _, seeds), jg, tg, jst, jstats, tst = _converged(0)
+    tr = tsteiner.finish_pipeline(tg, tst, None, len(seeds), mst_algo="boruvka")
+    jr = jsteiner.finish_pipeline(jg, jst, jstats, len(seeds), mst_algo="boruvka")
+    assert_same(jr.parent, tr.parent)
+    assert_same(jr.tree.total_distance, tr.tree.total_distance)
+    assert_same(jr.tree.num_edges, tr.tree.num_edges)
     with pytest.raises(ValueError, match="unknown mst_algo"):
         tsteiner.finish_pipeline(tg, tst, None, len(seeds), mst_algo="kruskal")
+
+
+def _pair_table(kind, S, rng):
+    """A symmetric (S, S) pair weight table with +inf diagonal: real-valued,
+    tie-heavy (integer weights in 1..3) or disconnected (most entries +inf)."""
+    if kind == "random":
+        W = rng.random((S, S)).astype(np.float32)
+    else:
+        W = rng.integers(1, 4, (S, S)).astype(np.float32)
+        if kind == "disconnected":
+            W[rng.random((S, S)) < 0.7] = np.inf
+    W = np.minimum(W, W.T)
+    np.fill_diagonal(W, np.inf)
+    return W
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "disconnected"])
+@pytest.mark.parametrize("S", [1, 2, 7, 24])
+def test_boruvka_dense_matches_reference(kind, S):
+    rng = np.random.default_rng(S * 7 + len(kind))
+    for _ in range(3):
+        W = _pair_table(kind, S, rng)
+        want = jmst.boruvka_dense(jnp.asarray(W))
+        got = tmst.boruvka_dense(torch.from_numpy(W))
+        assert_same(want, got)
+        # a spanning tree of the same weight as Prim's (ties may differ)
+        if np.isfinite(W[~np.eye(S, dtype=bool)]).all() and S > 1:
+            p = tmst.prim_dense(torch.from_numpy(W)).numpy()
+            b = got.numpy()
+            kids = np.arange(1, S)
+            assert W[kids, p[kids]].sum() == W[kids, b[kids]].sum()
+
+
+@pytest.mark.parametrize("S", [1, 5, 16])
+def test_root_parents_matches_reference(S):
+    rng = np.random.default_rng(S)
+    for density in (0.1, 0.4):
+        adj = rng.random((S, S)) < density
+        adj = adj | adj.T
+        assert_same(jmst._root_parents(jnp.asarray(adj)), tmst._root_parents(torch.from_numpy(adj)))
+
+
+@pytest.mark.parametrize("kw", [dict(backend="single", mode="pallas"),
+                                dict(backend="single", mode="bucket"),
+                                dict(backend="batch", mode="pallas")],
+                         ids=["single-pallas", "single-bucket", "batch-pallas"])
+def test_solver_boruvka_matches_reference(kw):
+    import repro.solver as jsolver
+    from repro_torch.solver import SolverConfig, SteinerSolver
+
+    src, dst, w, n, seeds = instance(4, n_seeds=9)
+    jg, tg = both_graphs(src, dst, w, n)
+    q = seeds if kw["backend"] == "single" else np.stack([seeds, seeds[::-1]])
+    cfg = dict(mst_algo="boruvka", batch_size=2, **kw)
+    jo = jsolver.SteinerSolver(jsolver.SolverConfig(**cfg)).prepare(jg).solve(q)
+    to = SteinerSolver(SolverConfig(**cfg), device="cpu").prepare(tg).solve(q)
+    assert_same(jo.raw.parent, to.raw.parent)
+    assert np.array_equal(np.asarray(jo.total_distance), np.asarray(to.total_distance))
+    assert np.array_equal(np.asarray(jo.num_edges), np.asarray(to.num_edges))

@@ -20,6 +20,7 @@ import repro.solver as jsolver
 from repro.core import ref as jref
 from repro.data.graphs import rmat_edges
 from _torch_parity import assert_same, both_graphs, instance
+from repro_torch.graphstore import StoreFormatError
 from repro_torch.kernels.minplus import minplus as tmp
 from repro_torch.kernels.minplus import ops as tops
 from repro_torch.kernels.minplus.ref import minplus_torch
@@ -457,13 +458,15 @@ def test_server_rejects_what_is_not_ported():
     q = SteinerServer(g, ServeConfig(), device="cpu").query([1, 9, 17, 25])
     one = SteinerSolver(SolverConfig(), device="cpu").prepare(g).solve(pad_seed_set(q.key, 8))
     assert (q.total_distance, q.num_edges) == (one.total_distance, one.num_edges)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # graph_path= opens a store (tests/test_torch_store.py serves from
+    # one): a path that holds none is refused by the store's reader
+    with pytest.raises(StoreFormatError, match="not a .gstore directory"):
         SteinerServer(graph_path="some.gstore", device="cpu")
     with pytest.raises(ValueError, match="exactly one"):
         SteinerServer(device="cpu")
     srv = _server(g)
     for call in (lambda: srv.apply_deltas([]), lambda: srv.bump_epoch()):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(ValueError, match="store-backed server"):
             call()
     with pytest.raises(ValueError, match="seed ids"):
         srv.submit([0, g.n])

@@ -152,8 +152,8 @@ def test_config_fields_and_defaults_match_reference():
 
 @pytest.mark.parametrize("kw", [
     dict(backend="mesh1d", mode="dense"),
-    dict(backend="single", mode="pallas", mst_algo="boruvka"),
-    dict(backend="batch", mode="bucket", mst_algo="boruvka"),
+    dict(backend="mesh2d", mode="bucket"),
+    dict(backend="mesh1d", mode="frontier", mst_algo="boruvka"),
 ])
 def test_not_ported_raises(kw):
     with pytest.raises(NotImplementedError, match="not ported yet: see ROADMAP.md"):
@@ -161,8 +161,10 @@ def test_not_ported_raises(kw):
 
 
 def test_graph_store_input_not_ported():
+    """Graph stores are ported (tests/test_torch_store.py); prepare() of
+    anything that is neither a Graph nor a GraphStore is refused."""
     solver = SteinerSolver(SolverConfig(backend="single", mode="pallas"), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(TypeError, match="a Graph or a GraphStore"):
         solver.prepare(object())
 
 
