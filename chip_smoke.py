@@ -97,7 +97,20 @@ result):
    epochs of 100 records, the last bit-identical to a cold frontier solve;
    Borůvka beside Prim on phase 6's pair table (equal MST weight); peak
    device memory;
-10. a line of launches by path, then one JSON line with each kernel's
+10. the paper's distributed engine on one NCCL rank (mesh (1, 1)): the
+   lvj_1k preset (mesh1d, bucket, max_iters=10_000, fuse_gather), mode
+   "dense", the mesh_frontier preset (K = 8192, ell_width=32), clw_10k's
+   knobs at S = 1024 (pair_chunks=8, lab_i16), Borůvka, per-rank telemetry
+   (64 rounds; its flight report checked) and mesh2d bucket, each prepared
+   from phase 6's graph with a cold and a warm solve whose state and tree
+   equal phase 6's single solve (Borůvka's: the single Borůvka tree of that
+   state); rounds, counters, prepare, cold and warm seconds; a profiler pass
+   of the bucket solve with NCCL's share of device time; the scale-10 fixed
+   answers of the mesh rows (547.0; 17 / 2550 / 257061 bucket, 10 / 2248 /
+   31047 frontier); scale 16 card against CPU (gloo) bit for bit in every
+   config, and from a store with 1D edge, 1D ELL and 2D shards loaded per
+   shard; no kernel launched;
+11. a line of launches by path, then one JSON line with each kernel's
    launches on its paths (the top-K ones of phase 9 included), its error and
    mismatches against the plain version, and its time beside its bound and
    the plain version's time (the lane kernel at the eight-key batch's
@@ -107,7 +120,7 @@ result):
    kernel on the same inputs, the layout's build and its plain fold, over
    a few slice budgets and lane groups (the choice of the package's
    constants), and at its scale-16 shape);
-11. last line: {"ok": true, "device": {...}}.
+12. last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one card.
 """
@@ -195,6 +208,7 @@ def device_profile(fn, wall_s):
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:8]
     return {
         "device_ms": total_us / 1e3,
+        "nccl_ms": sum(v for k, v in by_name.items() if "nccl" in k.lower()) / 1e3,
         "busy_share": total_us / 1e6 / wall_s,
         "top_device_ms": {k: round(v / 1e3, 3) for k, v in top},
         "minplus_ms_per_launch": {k: t / 1e3 / n for k, (n, t) in minplus.items()},
@@ -1765,6 +1779,206 @@ def phase7_serving(dev, h):
     return rec, lane_launches, (distinct, out8, server._handle.config)
 
 
+# Phase 10's configurations: the repo's paper presets
+# (src/repro/configs/steiner.py) cut from a (16, 16) mesh to one rank
+MESH_PRESET = dict(backend="mesh1d", mode="bucket", mst_algo="prim", max_iters=10_000,
+                   mesh_shape=(1, 1), fuse_gather=True)
+MESH_RUNS = (
+    ("lvj_1k", {}),
+    ("dense", dict(mode="dense")),
+    ("mesh_frontier", dict(mode="frontier", ell_width=32, frontier_size=8192)),
+    ("clw_10k knobs", dict(pair_chunks=8, lab_i16=True)),
+    ("boruvka", dict(mst_algo="boruvka")),
+    ("per-rank telemetry", dict(telemetry_rounds=64, telemetry_per_rank=True)),
+    ("mesh2d", dict(backend="mesh2d")),
+)
+MESH_FIELDS = ("dist", "lab", "pred", "marked", "path_edge", "bridge_u", "bridge_v",
+               "bridge_w", "bridge_valid", "total_distance", "num_edges", "iterations",
+               "relaxations", "messages", "history", "per_rank")
+# BENCH_steiner.json's mesh rows at scale 10: (total, rounds, relaxations,
+# messages); the frontier row runs at frontier_size=256
+MESH_SCALE10 = {"bucket": (547.0, 17, 2550, 257061), "frontier": (547.0, 10, 2248, 31047)}
+
+
+def mesh_config(name, **kw):
+    from repro_torch.solver import SolverConfig
+
+    return SolverConfig(**{**MESH_PRESET, **dict(MESH_RUNS)[name], **kw})
+
+
+def same_mesh(a, b, what, fields=MESH_FIELDS):
+    """Two DistSteinerResults equal bit for bit in ``fields``."""
+    import numpy as np
+
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if (x is None) != (y is None) or (x is not None and not (
+                np.asarray(x).dtype == np.asarray(y).dtype
+                and np.array_equal(np.asarray(x), np.asarray(y)))):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def same_as_single(res, single, what):
+    """A mesh result against a single solve's SteinerResult: the state and
+    tree bit for bit, the total within f32 summation tolerance."""
+    import math
+
+    import numpy as np
+
+    st, tree = single.state, single.tree
+    pairs = {"dist": st.dist, "lab": st.lab, "pred": st.pred, "marked": tree.in_tree_vertex,
+             "path_edge": tree.path_edge, "bridge_u": tree.bridge_u, "bridge_v": tree.bridge_v,
+             "bridge_w": tree.bridge_w, "bridge_valid": tree.bridge_valid}
+    for f, t in pairs.items():
+        want = t.cpu().numpy()
+        got = getattr(res, f)
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"{what}: {f} differs from the single solve's")
+    if res.num_edges != int(tree.num_edges):
+        raise AssertionError(f"{what}: {res.num_edges} edges, the single solve {tree.num_edges}")
+    if not math.isclose(res.total_distance, float(tree.total_distance), rel_tol=1e-6,
+                        abs_tol=1e-4):
+        raise AssertionError(f"{what}: total {res.total_distance} vs {float(tree.total_distance)}")
+
+
+def phase10_mesh(dev, h, single_in):
+    """The paper's distributed engine on one NCCL rank: every MESH_RUNS
+    config at full width on phase 6's graph and seeds (a cold and a warm
+    solve, each state and tree = phase 6's single solve; Borůvka's = the
+    single Borůvka tree of phase 6's state), a profiler pass over the bucket
+    solve with the NCCL share of device time; the scale-10 fixed answers;
+    scale 16 card against CPU in every config and from a store with all
+    three shard flavours.  Launches no kernel.  Returns the record."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import steiner as smod
+    from repro_torch.core.graph import from_edges
+    from repro_torch.core.mesh import backend_name
+    from repro_torch.data.graphs import rmat_edges, select_seeds
+    from repro_torch.graphstore import (ArraySource, build_store, open_store,
+                                        partition_ell_store, partition_store,
+                                        partition_store_2d)
+    from repro_torch.kernels.minplus import minplus as kmod
+    from repro_torch.obs import flight
+    from repro_torch.solver import SolverConfig, SteinerSolver
+
+    seeds, ref = single_in
+    S = len(seeds)
+    rec = {"runs": {}}
+    t_phase = time.perf_counter()
+    launches0 = (kmod.minplus_call.launches, kmod.minplus_blocked_call.launches)
+    torch.cuda.reset_peak_memory_stats()
+    boruvka_ref = smod.finish_pipeline(h.graph, ref.raw.state, ref.raw.stats, S, "boruvka")
+    bucket_handle = None
+    for name, _ in MESH_RUNS:
+        cfg = mesh_config(name)
+        hm, prep_s = timed(lambda: SteinerSolver(cfg, device=dev).prepare(h.graph))
+        cold, cold_s = timed(hm.solve, seeds)
+        warm, warm_s = timed(hm.solve, seeds)
+        same_mesh(warm.raw, cold.raw, f"{name}: warm vs cold")
+        same_as_single(cold.raw, boruvka_ref if cfg.mst_algo == "boruvka" else ref.raw,
+                       f"{name} at full width")
+        t = cold.telemetry
+        if cfg.telemetry_per_rank:
+            flight.check_consistency(t.per_rank, t.per_round, label=name)
+            report = flight.analyze(t.per_rank, label=name)
+            if report.n_ranks != 1 or report.rounds != t.per_round.shape[0]:
+                raise AssertionError(f"{name}: flight report {report.n_ranks} ranks, "
+                                     f"{report.rounds} rounds")
+        run = dict(prepare_s=prep_s, cold_s=cold_s, warm_s=warm_s, rounds=t.iterations,
+                   relaxations=t.relaxations, messages=t.messages,
+                   total_distance=cold.total_distance, num_edges=cold.num_edges,
+                   shard_rows=int(hm.artifact("edges")[0].shape[0]))
+        rec["runs"][name] = run
+        log(f"phase 10: {name} ({cfg.backend} {cfg.mode}, mesh {cfg.mesh_shape}) at full "
+            f"width: prepare {prep_s:.3f} s (shard of {run['shard_rows']} rows), cold "
+            f"{cold_s:.3f} s, warm {warm_s:.3f} s; rounds {t.iterations}, relaxations "
+            f"{t.relaxations}, messages {t.messages}; D={cold.total_distance} edges="
+            f"{cold.num_edges}: state and tree = phase 6's single solve"
+            + (" (Borůvka's tree of phase 6's state)" if cfg.mst_algo == "boruvka" else ""))
+        if name == "lvj_1k":
+            bucket_handle = hm
+        del hm, cold, warm
+    rec["nccl"] = backend_name(dev)
+    if rec["nccl"] != "nccl" or backend_name("cpu") != "gloo":
+        raise AssertionError(f"collectives of CUDA tensors go through {rec['nccl']}")
+    prof = device_profile(lambda: bucket_handle.solve(seeds), rec["runs"]["lvj_1k"]["warm_s"])
+    rec["profile"] = {k: prof[k] for k in ("device_ms", "nccl_ms", "busy_share",
+                                           "top_device_ms")}
+    rec["nccl_share"] = prof["nccl_ms"] / max(prof["device_ms"], 1e-9)
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"phase 10: collectives of CUDA tensors through {rec['nccl']} (one rank, mesh "
+        f"(1, 1)); lvj_1k warm solve: device busy {prof['busy_share']:.3f}, NCCL "
+        f"{prof['nccl_ms']:.3f} of {prof['device_ms']:.3f} device ms (share "
+        f"{rec['nccl_share']:.4f}); top device time (ms): {json.dumps(prof['top_device_ms'])}; "
+        f"peak {rec['peak_mem_gb']:.1f} GB")
+    del bucket_handle
+
+    # the scale-10 fixed answers
+    src, dst, w, n = rmat_edges(10, 8, max_weight=100, seed=0)
+    sd10 = select_seeds(n, src, dst, 16, strategy="uniform", seed=1000)
+    g10 = from_edges(src, dst, w, n, pad_to=8, device=dev)
+    for mode, want in MESH_SCALE10.items():
+        cfg = SolverConfig(backend="mesh1d", mode=mode, mesh_shape=(1, 1), frontier_size=256)
+        out = SteinerSolver(cfg, device=dev).prepare(g10).solve(sd10)
+        t = out.telemetry
+        got = (out.total_distance, t.iterations, t.relaxations, t.messages)
+        log(f"phase 10: scale 10 mesh {mode} -> {got}")
+        if got != want:
+            raise AssertionError(f"scale-10 mesh {mode}: {got} != {want}")
+
+    # scale 16, card against CPU (gloo), every config, then from a store
+    src, dst, w, n = rmat_edges(16, 8, max_weight=100, seed=0)
+    sd16 = select_seeds(n, src, dst, 64, strategy="uniform", seed=1000)
+    graphs = {str(d): from_edges(src, dst, w, n, pad_to=8, device=d) for d in (dev, "cpu")}
+    card = {}
+    for name, _ in MESH_RUNS:
+        cfg = mesh_config(name)
+        res, secs = {}, {}
+        for d in (dev, "cpu"):
+            out, secs[str(d)] = timed(
+                lambda: SteinerSolver(cfg, device=d).prepare(graphs[str(d)]).solve(sd16))
+            res[str(d)] = out.raw
+        same_mesh(res[str(dev)], res["cpu"], f"scale 16 {name}: card vs CPU")
+        card[name] = res[str(dev)]
+        log(f"phase 10: scale 16 {name}: card = CPU bit for bit (rounds "
+            f"{res[str(dev)].iterations}); card {secs[str(dev)]:.3f} s, cpu {secs['cpu']:.3f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shards_") as tmp:
+        path, _ = build_store(ArraySource(src, dst, w, n), Path(tmp) / "rmat16.gstore")
+        partition_store(open_store(path, verify=False), n_replica=1, n_blocks=1)
+        partition_ell_store(open_store(path, verify=False), k=32)
+        flavours = (("lvj_1k", "1d edge shards"), ("mesh_frontier", "1d ELL shards"),
+                    ("mesh2d", "2d shards"))
+        for name, flavour in flavours:
+            if name == "mesh2d":
+                partition_store_2d(open_store(path, verify=False), R=1, C=1)
+            res = {}
+            for d in (dev, "cpu"):
+                hs = SteinerSolver(mesh_config(name), device=d).prepare(open_store(path))
+                if hs.artifact("from_shards") is not True:
+                    raise AssertionError(f"scale 16 {name}: the store's {flavour} were not "
+                                         f"loaded")
+                res[str(d)] = hs.solve(sd16).raw
+            same_mesh(res[str(dev)], res["cpu"], f"scale 16 {name} from {flavour}: card vs CPU")
+            # the in-memory graph's +inf padding edges give vertex 0 other ELL
+            # rows, so the frontier's order (not its fixpoint) may differ
+            same_mesh(res["cpu"], card[name], f"scale 16 {name} from {flavour} vs in memory",
+                      fields=MESH_FIELDS[:11])
+            log(f"phase 10: scale 16 {name} from the store's {flavour} (loaded per shard): "
+                f"card = CPU bit for bit, state and tree = the in-memory solve's (rounds "
+                f"{res['cpu'].iterations} against {card[name].iterations})")
+    if (kmod.minplus_call.launches, kmod.minplus_blocked_call.launches) != launches0:
+        raise AssertionError("the mesh path launched a min-plus kernel")
+    dist.destroy_process_group()  # the world of one the backend made
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 10: {rec['phase_s']:.1f} s; no kernel launched (the mesh path runs the plain "
+        f"ops)")
+    return rec
+
+
 def kernel_times(dev, ell, st, blocked_in, lanes_in, seg_in, tally):
     """ms of each kernel and of the plain version at its path's shape (the
     blocked and the lane kernels are also held against the plain version
@@ -1994,17 +2208,21 @@ def main(argv=None) -> int:
     done("9")
     # ---- phase 9b (the store-backed path at full width)
     store_rec, store_launches = phase9b_store_full_width(dev, h, single_in, g_host)
-    del single_in, g_host
+    del g_host
     done("9b")
+    # ---- phase 10 (the mesh backends on one NCCL rank)
+    mesh_rec = phase10_mesh(dev, h, single_in)
+    del single_in
+    done("10")
     times = kernel_times(dev, h.artifact("ell"), st, {"full": hb, "scale16": blocked16},
                          lanes_in, seg_in, tally)
-    done("10")
+    done("11")
     log(f"kernel times: {json.dumps(times)}")
     log("tolerance: exact (every output of every kernel equals the plain version's; "
         + ", ".join(f"{k}: {t.cases} cases, {t.mismatches} mismatches"
                     for k, t in tally.items()) + ")")
 
-    # ---- phase 10
+    # ---- phase 11
     by_path = {"minplus_call (pallas, phase 6)": rec["launches_per_solve"] * 4,
                "minplus_call (lanes, phase 7)": lane_launches,
                "minplus_blocked_call (pallas, phase 8)": blocked_launches,
@@ -2051,11 +2269,11 @@ def main(argv=None) -> int:
              "full_width": rec, "serving": serve_rec, "blocked_full_width": blocked_rec,
              "schedules_full_width": sched_rec, "scale16_lane_launches": lanes16,
              "scale16_store_launches": store16, "store_full_width": store_rec,
-             "launches_by_path": by_path,
+             "mesh": mesh_rec, "launches_by_path": by_path,
              "kernel_times": times, "kernels": kernels, "seconds": total_s}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
-    # ---- phase 11
+    # ---- phase 12
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -63,20 +63,29 @@ def local_pair_tables(
     return dmat, umat, vmat
 
 
-def distance_graph(
-    g: Graph, st: VoronoiState, S: int
+def edge_pair_tables(
+    src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, dist: torch.Tensor,
+    lab: torch.Tensor, S: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Single-device G'1: finds the cross-cell edges, then reduces pair tables.
+    """Pair tables of an edge list (global ids into ``dist``/``lab``): finds
+    the cross-cell edges, then reduces them.
 
     The cross test needs only the labels and weights, so the distances and
     endpoints are gathered for the cross edges alone.
     """
-    lab_src, lab_dst = st.lab[g.src], st.lab[g.dst]
-    cross = (lab_src != lab_dst) & (lab_src < S) & (lab_dst < S) & torch.isfinite(g.w)
+    lab_src, lab_dst = lab[src], lab[dst]
+    cross = (lab_src != lab_dst) & (lab_src < S) & (lab_dst < S) & torch.isfinite(w)
     idx = torch.nonzero(cross).squeeze(1)
     del cross
-    src, dst = g.src[idx], g.dst[idx]
+    src, dst = src[idx], dst[idx]
     lab_src, lab_dst = lab_src[idx], lab_dst[idx]
     return local_pair_tables(
-        src, dst, g.w[idx], st.dist[src], st.dist[dst], lab_src, lab_dst, S
+        src, dst, w[idx], dist[src], dist[dst], lab_src, lab_dst, S
     )
+
+
+def distance_graph(
+    g: Graph, st: VoronoiState, S: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-device G'1 over the graph's edges (:func:`edge_pair_tables`)."""
+    return edge_pair_tables(g.src, g.dst, g.w, st.dist, st.lab, S)

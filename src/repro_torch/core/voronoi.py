@@ -153,6 +153,31 @@ def _round_f32(num: int, scale: int) -> np.float32:
     return np.float32(math.copysign(math.ldexp(q, drop - scale), num))
 
 
+def weight_sums(w: torch.Tensor) -> torch.Tensor:
+    """(257,) int64 exact sums of the finite f32 weights ``w``: their
+    significands summed per exponent (0..255), then their count.  Sums of
+    several shards add element-wise (:func:`delta_from_sums`)."""
+    fin = torch.isfinite(w)
+    bits = torch.where(fin, w, 0.0).view(torch.int32).to(torch.int64)
+    exp = (bits >> 23) & 0xFF
+    sig = (bits & 0x7FFFFF) | ((exp > 0).to(torch.int64) << 23)
+    sig = torch.where(bits < 0, -sig, sig)
+    per_exp = torch.zeros(257, dtype=torch.int64, device=w.device)
+    per_exp.index_add_(0, exp, sig)
+    per_exp[256] = fin.sum()
+    return per_exp
+
+
+def delta_from_sums(per_exp: torch.Tensor) -> np.float32:
+    """Δ from :func:`weight_sums`: the exact sum rounded once to f32,
+    divided in f32 by the count, at least 1e-6.  One host sync."""
+    sums = per_exp.tolist()
+    # a significand at exponent e weighs 2**(max(e, 1) - 150)
+    total = sum(s << (max(e, 1) - 1) for e, s in enumerate(sums[:256]) if s)
+    mean = _round_f32(total, 149) / np.float32(max(sums[256], 1))
+    return np.maximum(mean, np.float32(1e-6))
+
+
 def bucket_delta(g: Graph) -> np.float32:
     """Default Δ of the bucket schedule: the mean finite weight.
 
@@ -161,19 +186,20 @@ def bucket_delta(g: Graph) -> np.float32:
     in int64 per exponent, combined as one integer, and rounded once to
     f32; the count is exact too, and the division is f32's.  One host sync.
     """
-    fin = torch.isfinite(g.w)
-    bits = torch.where(fin, g.w, 0.0).view(torch.int32).to(torch.int64)
-    exp = (bits >> 23) & 0xFF
-    sig = (bits & 0x7FFFFF) | ((exp > 0).to(torch.int64) << 23)
-    sig = torch.where(bits < 0, -sig, sig)
-    per_exp = torch.zeros(257, dtype=torch.int64, device=g.device)
-    per_exp.index_add_(0, exp, sig)
-    per_exp[256] = fin.sum()
-    sums = per_exp.tolist()
-    # a significand at exponent e weighs 2**(max(e, 1) - 150)
-    total = sum(s << (max(e, 1) - 1) for e, s in enumerate(sums[:256]) if s)
-    mean = _round_f32(total, 149) / np.float32(max(sums[256], 1))
-    return np.maximum(mean, np.float32(1e-6))
+    return delta_from_sums(weight_sums(g.w))
+
+
+def lex_segmin(cand, lab, src, seg, nseg: int):
+    """The lexicographic minimum of the candidates ``(cand, lab, src)`` per
+    segment ``seg`` in three segment-min passes: (m, ml, ms), each
+    (nseg,), +inf / INT32_MAX where a segment has no finite candidate."""
+    cand, lab, src = cand.reshape(-1), lab.reshape(-1), src.reshape(-1)
+    m = segment_min(cand, seg, nseg, INF)
+    e1 = cand == m[seg]
+    ml = segment_min(torch.where(e1, lab, IMAX), seg, nseg, IMAX)
+    e2 = e1 & (lab == ml[seg])
+    ms = segment_min(torch.where(e2, src, IMAX), seg, nseg, IMAX)
+    return m, ml, ms
 
 
 def lex_update(cand, lab, src, seg, st: VoronoiState, active=None):
@@ -186,15 +212,8 @@ def lex_update(cand, lab, src, seg, st: VoronoiState, active=None):
     axis (state (B, N)), ``seg`` holds flat ids ``lane * N + v`` and
     ``active`` (B,) keeps the state of the lanes it marks False.
     """
-    nseg = st.dist.numel()
-    cand, lab, src = cand.reshape(-1), lab.reshape(-1), src.reshape(-1)
-    m = segment_min(cand, seg, nseg, INF)
-    e1 = cand == m[seg]
-    ml = segment_min(torch.where(e1, lab, IMAX), seg, nseg, IMAX)
-    e2 = e1 & (lab == ml[seg])
-    ms = segment_min(torch.where(e2, src, IMAX), seg, nseg, IMAX)
     shape = st.dist.shape
-    m, ml, ms = m.view(shape), ml.view(shape), ms.view(shape)
+    m, ml, ms = (x.view(shape) for x in lex_segmin(cand, lab, src, seg, st.dist.numel()))
     same = m == st.dist
     upd = torch.isfinite(m) & (
         (m < st.dist)

@@ -8,12 +8,14 @@ stores.
 * :mod:`repro_torch.graphstore.ingest`  the streaming CSR builder and edge
   sources (chunked RMAT, in-memory arrays)
 * :mod:`repro_torch.graphstore.loader`  ``open_store`` -> :class:`GraphStore`
-  (lazy ``to_graph``, the ELL view filled on the device)
+  (lazy ``to_graph``, the ELL view filled on the device, shard loads)
+* :mod:`repro_torch.graphstore.partition`  per-shard partitioning for the
+  mesh backends (1D edge and ELL shards, 2D shards) and the hub-sort
+  reorder
 
 Mutation rides on top as the delta log (:mod:`repro_torch.delta`);
 ``append_deltas`` is re-exported here.  Not ported: the ``graphstore``
-CLI, ``TsvEdgeSource``, the shard partitioners and loaders, and
-``compact`` (ROADMAP.md).
+CLI, ``TsvEdgeSource`` and ``compact`` (ROADMAP.md).
 """
 
 from repro_torch.graphstore.format import (
@@ -32,6 +34,15 @@ from repro_torch.graphstore.ingest import (
     csr_from_chunks,
 )
 from repro_torch.graphstore.loader import GraphStore, open_store
+from repro_torch.graphstore.partition import (
+    hub_sort_store,
+    load_partition,
+    load_partition_2d,
+    load_partition_ell,
+    partition_ell_store,
+    partition_store,
+    partition_store_2d,
+)
 
 
 def __getattr__(name: str):
@@ -59,4 +70,11 @@ __all__ = [
     "csr_from_chunks",
     "GraphStore",
     "open_store",
+    "hub_sort_store",
+    "load_partition",
+    "load_partition_2d",
+    "load_partition_ell",
+    "partition_ell_store",
+    "partition_store",
+    "partition_store_2d",
 ]

@@ -12,9 +12,9 @@ From it you get
 * ``iter_coo(...)``      bounded-memory chunks of the directed edge list.
 
 Checksums are verified at open by default (``verify=False`` skips it, e.g.
-when reopening a store this process just wrote).  The per-shard partition
-loads of the reference (``load_partition*``) feed the mesh backends and are
-not ported (ROADMAP.md §1, item 6).
+when reopening a store this process just wrote).  ``load_partition*``
+rebuild the mesh backends' per-rank partitions from the shard files that
+:mod:`repro_torch.graphstore.partition` writes.
 """
 
 from __future__ import annotations
@@ -113,6 +113,20 @@ class GraphStore:
     @property
     def partition_meta(self) -> Optional[dict]:
         return self.manifest.get("partition")
+
+    @property
+    def partition_fresh(self) -> bool:
+        """True when persisted shards reflect the store's current epoch.
+
+        Shards written before deltas were appended describe the stale base
+        graph; loading them would silently drop the mutations, so the
+        shard-load paths gate on this.  Re-partitioning (which stamps the
+        current epoch) restores freshness.
+        """
+        meta = self.partition_meta
+        if not meta:
+            return False
+        return self.overlay is None or int(meta.get("epoch", 0)) == self.epoch
 
     def verify(self) -> None:
         """Re-checks every array and delta segment checksum."""
@@ -237,23 +251,40 @@ class GraphStore:
         )
 
     # ------------------------------------------------------------------
-    # shards (mesh backends, not ported)
+    # shards
     # ------------------------------------------------------------------
 
-    def _not_ported(self, what: str):
-        raise NotImplementedError(
-            f"{what}: per-shard partition loads feed the mesh backends, which "
-            f"are not ported yet (ROADMAP.md §1, item 6)"
-        )
+    def _check_shards_fresh(self) -> None:
+        # no partition at all is the loaders' own (clearer) error
+        if self.partition_meta and not self.partition_fresh:
+            raise fmt.StoreFormatError(
+                f"{self.path}: persisted shards predate the delta log "
+                f"(shard epoch {int((self.partition_meta or {}).get('epoch', 0))}"
+                f" != store epoch {self.epoch}); re-partition or compact "
+                f"before loading shards"
+            )
 
     def load_partition(self):
-        self._not_ported("load_partition")
+        """Rebuilds the stored 1D partition (see ``partition.py``)."""
+        from repro_torch.graphstore.partition import load_partition
+
+        self._check_shards_fresh()
+        return load_partition(self)
 
     def load_partition_2d(self):
-        self._not_ported("load_partition_2d")
+        """Rebuilds the stored 2D partition (see ``partition.py``)."""
+        from repro_torch.graphstore.partition import load_partition_2d
+
+        self._check_shards_fresh()
+        return load_partition_2d(self)
 
     def load_partition_ell(self):
-        self._not_ported("load_partition_ell")
+        """Rebuilds the stored 1D ELL partition, the sharded priority-queue
+        layout of the mesh frontier mode (see ``partition.py``)."""
+        from repro_torch.graphstore.partition import load_partition_ell
+
+        self._check_shards_fresh()
+        return load_partition_ell(self)
 
     def __repr__(self) -> str:
         part = self.partition_meta

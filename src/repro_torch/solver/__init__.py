@@ -2,9 +2,10 @@
 
 ``backend="single"`` runs modes "dense", "bucket", "frontier" and "pallas"
 (with or without ``pallas_frontier``), ``backend="batch"`` modes "dense",
-"bucket" and "pallas", each with ``mst_algo`` "prim" or "boruvka"; ``prepare``
-takes an in-memory graph or an on-disk graph store.  The mesh backends are
-not ported yet.
+"bucket" and "pallas", ``backend="mesh1d"`` modes "dense", "bucket" and
+"frontier" and ``backend="mesh2d"`` modes "dense" and "bucket" over
+``torch.distributed``, each with ``mst_algo`` "prim" or "boruvka"; ``prepare``
+takes an in-memory graph or an on-disk graph store.
 """
 
 from repro_torch.solver import backends as _backends  # registers the backends

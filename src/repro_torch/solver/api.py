@@ -10,7 +10,9 @@ Usage::
     out.total_distance                    # D(G_S)
 
 ``SolverConfig(backend="batch", ...)`` takes a (B, S) seed batch instead and
-returns (B,) totals and edge counts.  ``prepare`` also takes an on-disk
+returns (B,) totals and edge counts.  ``backend="mesh1d"`` and ``"mesh2d"``
+run one rank of a ``torch.distributed`` mesh (every rank makes the same
+calls); ``mesh_shape=(1, 1)`` needs no setup.  ``prepare`` also takes an on-disk
 :class:`~repro_torch.graphstore.GraphStore` (from ``open_store``); such a
 handle follows the store's delta log with :meth:`PreparedGraph.refresh`.
 The solver runs on ``device="cuda"`` unless given another device; with no
@@ -22,9 +24,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.mesh import rank_device
 from repro_torch.solver.config import SolverConfig
 from repro_torch.solver.registry import SolveOutput, get_backend
-from repro_torch.solver.backends import NOT_PORTED
 
 
 def resolve_device(device) -> torch.device:
@@ -71,7 +73,8 @@ class PreparedGraph:
 
     def artifact(self, name: str):
         """One preprocessing artifact by name ("graph", "ell",
-        "blocked_layout", "store"); None if absent."""
+        "blocked_layout", "store"; for the mesh backends "mesh", "part"
+        and "edges", this rank's shard); None if absent."""
         return self._artifacts.get(name)
 
     def refresh(self) -> dict:
@@ -134,10 +137,11 @@ class SteinerSolver:
     handles."""
 
     def __init__(self, config: SolverConfig = SolverConfig(), device="cuda"):
-        if config.backend not in ("single", "batch"):
-            raise NotImplementedError(f"backend={config.backend!r}: {NOT_PORTED}")
         self.config = config
         self.device = resolve_device(device)
+        if config.backend in ("mesh1d", "mesh2d"):
+            # a mesh rank runs on cuda:LOCAL_RANK unless given an index
+            self.device = rank_device(self.device)
         self._backend = get_backend(config.backend)
         self._backend.validate(config)
 

@@ -27,19 +27,32 @@ by "single" in ``prepare`` (kept beside the ELL view), by "batch" at its
 first solve.  The top-K schedules relax a new tile every round, whose
 layout the kernel's wrapper builds each round.
 
-The mesh backends raise ``NotImplementedError`` (see ROADMAP.md).
+  "mesh1d"  the paper's design on a (replica x vertex-block) mesh of ranks
+            over ``torch.distributed`` (:mod:`repro_torch.core.dist_steiner`;
+            mode "frontier" over a sharded ELL view).
+  "mesh2d"  the (src-block x dst-block) decomposition
+            (:mod:`repro_torch.core.dist_steiner_2d`).
+
+The mesh backends run SPMD, one process a mesh position
+(:mod:`repro_torch.core.mesh`): every rank prepares and solves with the same
+arguments, partitions on the host (or loads its store's shards when they
+are fresh and match ``mesh_shape``), keeps only its own shard on its device,
+and returns the same answer.  A mesh of one position needs no setup.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core import dist_steiner as d1
+from repro_torch.core import dist_steiner_2d as d2
 from repro_torch.core import steiner as smod
 from repro_torch.core import voronoi as vmod
+from repro_torch.core.mesh import device_mesh
 from repro_torch.core.graph import EllGraph, Graph, ell_view_cached, graph_cached
 from repro_torch.graphstore.loader import GraphStore
 from repro_torch.kernels.minplus import ops as kops
@@ -51,9 +64,6 @@ from repro_torch.solver.registry import (
     telemetry_from_counts,
     to_host,
 )
-
-NOT_PORTED = "not ported yet: see ROADMAP.md"
-
 
 def blocked_layout_cached(ell: EllGraph, cfg: SolverConfig, lanes: int = 1):
     """The blocked kernel's layout of the ELL view ``ell`` (the one the
@@ -303,3 +313,215 @@ def _stack(results):
                               for f in dataclasses.fields(first)})
 
     return stack(results)
+
+
+# ----------------------------------------------------------------------------
+# mesh backends
+# ----------------------------------------------------------------------------
+
+
+def _host_edges(g):
+    """A Graph's (src, dst, w) as host numpy arrays."""
+    return tuple(t.cpu().numpy() for t in (g.src, g.dst, g.w))
+
+
+def _shard(arrays, idx: int, rows: int, device):
+    """Rank ``idx``'s slice of each flat rank-major array, on ``device``."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(a[idx * rows:(idx + 1) * rows])).to(device)
+                 for a in arrays)
+
+
+def _mesh_output(res, cfg: SolverConfig) -> SolveOutput:
+    return SolveOutput(
+        total_distance=res.total_distance,
+        num_edges=res.num_edges,
+        raw=res,
+        telemetry=telemetry_from_counts(
+            res.iterations, res.relaxations, res.messages, res.history,
+            cfg.telemetry_rounds, per_rank=res.per_rank,
+        ),
+    )
+
+
+def _store_scheme(store, scheme: str, dims, ell_k=None) -> bool:
+    """True when ``store`` holds fresh shards of ``scheme`` cut for ``dims``
+    (and ELL shards of width ``ell_k``)."""
+    meta = store.partition_meta
+    if not meta or meta.get("scheme") != scheme or not store.partition_fresh:
+        return False
+    keys = ("n_replica", "n_blocks") if scheme == "1d" else ("R", "C")
+    if (meta[keys[0]], meta[keys[1]]) != tuple(dims):
+        return False
+    return ell_k is None or meta.get("ell", {}).get("k") == ell_k
+
+
+class _MeshBackend(_Backend):
+    seeds_ndim = 1
+
+    def _prepared(self, cfg, g, device, part, arrays, from_shards: bool):
+        """The artifacts: the mesh, the host partition ("part", or
+        "ellpart" in mode "frontier"), this rank's shard of ``arrays`` on
+        ``device`` ("edges"), and whether the partition was loaded from the
+        store's shards ("from_shards")."""
+        mesh = device_mesh(cfg.mesh_shape, ("data", "model"))
+        rows = arrays[0].shape[0] // mesh.size
+        key = "ellpart" if cfg.mode == "frontier" else "part"
+        art = {"graph": g, "mesh": mesh, key: part, "from_shards": from_shards,
+               "edges": _shard(arrays, mesh.rank, rows, device)}
+        if isinstance(g, GraphStore):
+            art["store"] = g
+        return art
+
+    def solve(self, cfg, artifacts, seeds, num_seeds) -> SolveOutput:
+        part = artifacts["ellpart" if cfg.mode == "frontier" else "part"]
+        return _mesh_output(self.solve_prepared(
+            cfg, artifacts["mesh"], part, seeds, edges=artifacts["edges"]), cfg)
+
+    @staticmethod
+    def _check_graph(g):
+        if not isinstance(g, (Graph, GraphStore)):
+            raise TypeError(
+                f"prepare() takes a Graph or a GraphStore, not a {type(g).__name__}"
+            )
+
+
+@register_backend("mesh1d")
+class Mesh1DBackend(_MeshBackend):
+    """The paper's design: dst-block 1D partition over a mesh of ranks.
+
+    ``mode="frontier"`` swaps the edge partition for a per-block sharded
+    ELL view (:class:`~repro_torch.core.dist_steiner.EllPartition`) driving
+    the prioritized top-K schedule.
+    """
+
+    preprocessing = ("mesh", "partition_1d [or ell_partition]", "shard to the device")
+
+    def prepare(self, cfg: SolverConfig, g, device: torch.device) -> dict:
+        """Partitions on the host (memoized per in-memory graph), or loads
+        a store's fresh 1D shards cut for ``mesh_shape``; keeps this rank's
+        shard on ``device``."""
+        self._check_graph(g)
+        R, B = cfg.mesh_shape
+        device_mesh(cfg.mesh_shape, ("data", "model"))  # raises before any work
+        frontier = cfg.mode == "frontier"
+        shards = isinstance(g, GraphStore) and _store_scheme(
+            g, "1d", (R, B), cfg.ell_width if frontier else None)
+        if frontier:
+            if shards:
+                part = g.load_partition_ell()
+            elif isinstance(g, GraphStore):
+                part = d1.partition_ell(g.ell(cfg.ell_width, device=device), n_replica=R,
+                                        n_blocks=B)
+            else:
+                part = graph_cached(g, ("partition_ell", cfg.ell_width, R, B),
+                                    lambda: d1.partition_ell(ell_view_cached(g, cfg.ell_width),
+                                                             n_replica=R, n_blocks=B))
+            return self._prepared(cfg, g, device, part, (part.nbr, part.wgt, part.row2v),
+                                  shards)
+        if shards:
+            part = g.load_partition()
+        elif isinstance(g, GraphStore):  # the store already holds both directions
+            part = d1.partition_edges(*g.coo(), g.n, n_replica=R, n_blocks=B,
+                                      symmetrize=False)
+        else:
+            # g is already symmetric and padded; its padding edges stay inert
+            part = graph_cached(g, ("partition_1d", R, B), lambda: d1.partition_edges(
+                *_host_edges(g), g.n, n_replica=R, n_blocks=B, symmetrize=False))
+        return self._prepared(cfg, g, device, part, (part.src, part.dst, part.w), shards)
+
+    def solve_prepared(
+        self,
+        cfg: SolverConfig,
+        mesh,
+        part,
+        seeds,
+        *,
+        vert_axis: str = "model",
+        replica_axes: Sequence[str] = ("data",),
+        edges=None,
+        device="cuda",
+    ) -> d1.DistSteinerResult:
+        """Runs this rank's part on a (mesh, Partition | EllPartition) pair;
+        ``edges`` is this rank's shard on its device (placed here when
+        None).  Every rank calls it with the same arguments."""
+        frontier = cfg.mode == "frontier"
+        if frontier and not isinstance(part, d1.EllPartition):
+            raise TypeError(
+                "mesh1d mode='frontier' runs on an EllPartition (the "
+                "sharded ELL view) — prepare the graph through "
+                "SteinerSolver(cfg).prepare(graph); the legacy "
+                "run_dist_steiner edge-Partition path has no ELL view"
+            )
+        replica_axes = tuple(replica_axes)
+        axes = replica_axes + (vert_axis,)
+        if (part.n_replica, part.n_blocks) != (mesh.axis_size(replica_axes),
+                                               mesh.shape[vert_axis]):
+            raise ValueError(
+                f"the partition is cut for {part.n_replica} replicas x {part.n_blocks} "
+                f"blocks, the mesh has {mesh.axis_size(replica_axes)} x "
+                f"{mesh.shape[vert_axis]}")
+        if edges is None:
+            arrays = (part.nbr, part.wgt, part.row2v) if frontier else (part.src, part.dst, part.w)
+            rows = part.rb if frontier else part.eb
+            edges = _shard(arrays, mesh.axis_index(axes), rows, device)
+        seeds = torch.as_tensor(seeds, dtype=torch.int32, device=edges[0].device)
+        dcfg = d1.DistSteinerConfig(
+            n=part.n, nb=part.nb, num_seeds=int(seeds.shape[0]), mode=cfg.mode,
+            mst_algo=cfg.mst_algo, local_steps=cfg.local_steps, pair_chunks=cfg.pair_chunks,
+            max_iters=cfg.max_iters, delta=cfg.delta, fuse_gather=cfg.fuse_gather,
+            lab_i16=cfg.lab_i16, frontier_size=cfg.frontier_size,
+            telemetry_rounds=cfg.telemetry_rounds, telemetry_per_rank=cfg.telemetry_per_rank,
+        )
+        fn = d1.make_dist_steiner(mesh, dcfg, vert_axis=vert_axis, replica_axes=replica_axes)
+        return d1.result_from_device(fn(*edges, seeds), part.n)
+
+
+@register_backend("mesh2d")
+class Mesh2DBackend(_MeshBackend):
+    """The (src-block x dst-block) 2D decomposition over a mesh of ranks."""
+
+    preprocessing = ("mesh", "partition_2d", "shard to the device")
+
+    def prepare(self, cfg: SolverConfig, g, device: torch.device) -> dict:
+        """As :meth:`Mesh1DBackend.prepare`, with the 2D partition."""
+        self._check_graph(g)
+        R, C = cfg.mesh_shape
+        device_mesh(cfg.mesh_shape, ("data", "model"))
+        shards = isinstance(g, GraphStore) and _store_scheme(g, "2d", (R, C))
+        if shards:
+            part = g.load_partition_2d()
+        elif isinstance(g, GraphStore):
+            part = d2.partition_edges_2d(*g.coo(), g.n, R=R, C=C, symmetrize=False)
+        else:
+            part = graph_cached(g, ("partition_2d", R, C), lambda: d2.partition_edges_2d(
+                *_host_edges(g), g.n, R=R, C=C, symmetrize=False))
+        return self._prepared(cfg, g, device, part, (part.src_row, part.dst_col, part.w),
+                              shards)
+
+    def solve_prepared(
+        self,
+        cfg: SolverConfig,
+        mesh,
+        part,
+        seeds,
+        *,
+        row_axis: str = "data",
+        col_axis: str = "model",
+        edges=None,
+        device="cuda",
+    ) -> d1.DistSteinerResult:
+        """See :meth:`Mesh1DBackend.solve_prepared`."""
+        if (part.R, part.C) != (mesh.shape[row_axis], mesh.shape[col_axis]):
+            raise ValueError(f"the partition is cut for {part.R} x {part.C} ranks, the mesh "
+                             f"has {mesh.shape[row_axis]} x {mesh.shape[col_axis]}")
+        if edges is None:
+            edges = _shard((part.src_row, part.dst_col, part.w),
+                           mesh.axis_index((row_axis, col_axis)), part.eb, device)
+        seeds = torch.as_tensor(seeds, dtype=torch.int32, device=edges[0].device)
+        fn = d2.make_dist_steiner_2d(
+            mesh, n=part.n, nf=part.nf, num_seeds=int(seeds.shape[0]), mode=cfg.mode,
+            mst_algo=cfg.mst_algo, max_iters=cfg.max_iters, delta=cfg.delta,
+            row_axis=row_axis, col_axis=col_axis, telemetry_rounds=cfg.telemetry_rounds,
+            telemetry_per_rank=cfg.telemetry_per_rank,
+        )
+        return d1.result_from_device(fn(*edges, seeds), part.n)

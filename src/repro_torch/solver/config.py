@@ -2,9 +2,8 @@
 
 The same fields, defaults and validation as ``repro.solver.config``, so one
 :class:`SolverConfig` value describes a solve in both packages.  This
-package runs every mode of ``backend="single"`` and ``backend="batch"``
-with either MST algorithm; the solver rejects the mesh backends (see
-ROADMAP.md).  The device is not a config field: it is an argument of
+package runs every backend and mode of the reference with either MST
+algorithm.  The device is not a config field: it is an argument of
 :class:`~repro_torch.solver.SteinerSolver`.
 """
 

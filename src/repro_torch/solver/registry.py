@@ -28,7 +28,9 @@ class SolveTelemetry:
       per_round: (R, 4) f32 array, one row per round (frontier, messages,
         relaxations, unreached), R = min(iterations, telemetry_rounds);
         None when telemetry_rounds=0.
-      per_rank: always None here (mesh backends are not ported).
+      per_rank: (R, n_ranks, 4) f32 flight-recorder buffer, one channel
+        row per rank and round (obs.ROUND_CHANNELS), with
+        ``SolverConfig.telemetry_per_rank=True`` (mesh backends); else None.
 
     Counters ride the loop as f32, like the reference's, so they are exact
     only below 2**24 per solve.
@@ -70,26 +72,31 @@ def to_host(*xs):
 
 
 def telemetry_from_counts(
-    iterations, relaxations, messages, history, telemetry_rounds: int,
+    iterations, relaxations, messages, history, telemetry_rounds: int, per_rank=None,
 ) -> SolveTelemetry:
     """Builds a :class:`SolveTelemetry` from the loop's counters.
 
     Takes tensors (fetched here in one go) or host values; ``history`` is
     the raw (H+1, 4) buffer or None, and its spill slot and unused rows are
-    trimmed here.
+    trimmed here; ``per_rank`` is the raw (H+1, n_ranks, 4) flight-recorder
+    buffer or None, trimmed the same way.
     """
-    iterations, relaxations, messages, history = to_host(
-        iterations, relaxations, messages, history
+    iterations, relaxations, messages, history, per_rank = to_host(
+        iterations, relaxations, messages, history, per_rank
     )
     iters = int(iterations)
-    per_round = None
+    keep = min(iters, telemetry_rounds)
+    per_round = rank_rows = None
     if history is not None and telemetry_rounds > 0:
-        per_round = np.asarray(history)[: min(iters, telemetry_rounds)]
+        per_round = np.asarray(history)[:keep]
+    if per_rank is not None and telemetry_rounds > 0:
+        rank_rows = np.asarray(per_rank)[:keep]
     return SolveTelemetry(
         iterations=iters,
         relaxations=int(round(float(relaxations))),
         messages=int(round(float(messages))),
         per_round=per_round,
+        per_rank=rank_rows,
     )
 
 

@@ -653,3 +653,43 @@ def test_boruvka_on_card_matches_cpu(cuda):
     a, b = out[str(cuda)], out["cpu"]
     assert torch.equal(a.raw.parent.cpu(), b.raw.parent)
     assert (a.total_distance, a.num_edges) == (b.total_distance, b.num_edges)
+
+
+MESH_CARD_RUNS = [
+    dict(backend="mesh1d", mode="bucket"),
+    dict(backend="mesh1d", mode="dense", local_steps=2, pair_chunks=3),
+    dict(backend="mesh1d", mode="frontier", frontier_size=64),
+    dict(backend="mesh1d", mode="bucket", lab_i16=True, mst_algo="boruvka"),
+    dict(backend="mesh1d", mode="bucket", fuse_gather=False, telemetry_per_rank=True),
+    dict(backend="mesh2d", mode="bucket", telemetry_per_rank=True),
+]
+MESH_FIELDS = ("dist", "lab", "pred", "marked", "path_edge", "bridge_u", "bridge_v",
+               "bridge_w", "bridge_valid", "total_distance", "num_edges", "iterations",
+               "relaxations", "messages", "history", "per_rank")
+
+
+@pytest.mark.parametrize("kw", MESH_CARD_RUNS,
+                         ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_mesh_on_card_matches_cpu(cuda, kw):
+    """Scale 10 at mesh (1, 1): the card's rank (its collectives through
+    NCCL) equals the CPU's (gloo) bit for bit, counters, telemetry and
+    per-rank rows included, on non-integer weights."""
+    from repro_torch.core.mesh import backend_name
+
+    src, dst, w, n = rmat_edges(10, 8, max_weight=100, seed=0)
+    w = (w / 7.0).astype(np.float32)
+    seeds = select_seeds(n, src, dst, 16, strategy="uniform", seed=1000)
+    cfg = SolverConfig(**kw)
+    out = {}
+    for d in (cuda, "cpu"):
+        h = SteinerSolver(cfg, device=d).prepare(from_edges(src, dst, w, n, pad_to=8, device=d))
+        assert h.artifact("edges")[0].device.type == torch.device(d).type
+        out[str(d)] = h.solve(seeds)
+    assert backend_name("cuda") == "nccl" and backend_name("cpu") == "gloo"
+    a, b = out[str(cuda)].raw, out["cpu"].raw
+    for f in MESH_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert (x is None) == (y is None), f
+        if x is not None:
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=f)
+    assert out[str(cuda)].telemetry.per_round.shape == out["cpu"].telemetry.per_round.shape

@@ -1,6 +1,6 @@
 """The solver front door of ``repro_torch`` against ``repro``: the scale-10
-fixed answers, telemetry, config parity, what is not ported, the device
-policy and import isolation."""
+fixed answers, telemetry, config parity, every backend, the device policy
+and import isolation."""
 
 import os
 import subprocess
@@ -156,8 +156,19 @@ def test_config_fields_and_defaults_match_reference():
     dict(backend="mesh1d", mode="frontier", mst_algo="boruvka"),
 ])
 def test_not_ported_raises(kw):
-    with pytest.raises(NotImplementedError, match="not ported yet: see ROADMAP.md"):
-        SteinerSolver(SolverConfig(**kw), device="cpu")
+    """The three mesh configs the solver once refused: each now prepares
+    and solves at mesh (1, 1), equal to the reference (tests/test_torch_mesh.py
+    holds every field; here the front door's outputs)."""
+    src, dst, w, n, seeds = instance(1, n_seeds=6)
+    jg, tg = both_graphs(src, dst, w, n)
+    out = SteinerSolver(SolverConfig(**kw), device="cpu").prepare(tg).solve(seeds)
+    jout = jsolver.SteinerSolver(jsolver.SolverConfig(**kw)).prepare(jg).solve(seeds)
+    assert abs(out.total_distance - float(jout.total_distance)) <= 1e-4
+    assert out.num_edges == int(jout.num_edges)
+    assert out.raw.edge_set() == jout.raw.edge_set()
+    for f in ("iterations", "relaxations", "messages"):
+        assert getattr(out.telemetry, f) == getattr(jout.telemetry, f)
+    assert_same(jout.telemetry.per_round, out.telemetry.per_round)
 
 
 def test_graph_store_input_not_ported():
@@ -184,8 +195,10 @@ def test_default_device_is_cuda():
 def test_registry_and_host_fetch():
     assert get_backend("single").name == "single"
     assert get_backend("batch").name == "batch"
+    assert get_backend("mesh1d").name == "mesh1d"
+    assert get_backend("mesh2d").name == "mesh2d"
     with pytest.raises(KeyError, match="unknown backend"):
-        get_backend("mesh1d")
+        get_backend("nope")
     a, b, c, d = to_host(torch.tensor(3, dtype=torch.int32), torch.tensor([1.5, np.inf]),
                          None, torch.tensor([True, False]))
     assert a.dtype == np.int32 and int(a) == 3

@@ -19,6 +19,7 @@ import repro.solver as jsolver
 from repro.data.graphs import er_edges, rmat_edges
 from _torch_parity import assert_same
 from repro_torch import graphstore as tgs
+from repro_torch.core.dist_steiner import partition_edges
 from repro_torch.core.graph import from_edges, to_ell
 from repro_torch.delta import append_deltas
 from repro_torch.kernels.minplus import minplus as tmp
@@ -162,8 +163,13 @@ def _bad_version(path):
 def test_integrity_errors(tmp_path, case):
     src, dst, w, n = _edges(1)
     path, _ = tgs.build_store(tgs.ArraySource(src, dst, w, n), tmp_path / "g.gstore")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tgs.open_store(path).load_partition()  # the mesh backends' shards
+    # the mesh backends' shards load, and are checksummed with the rest
+    tgs.partition_store(tgs.open_store(path), n_replica=1, n_blocks=2)
+    store = tgs.open_store(path)
+    want = partition_edges(*store.coo(), n, n_replica=1, n_blocks=2, symmetrize=False)
+    got = store.load_partition()
+    for f in ("src", "dst", "w"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
     if case == "crc":
         _corrupt_crc(path)
         with pytest.raises(tgs.ChecksumError, match="crc32"):
