@@ -95,8 +95,12 @@ result):
    50 more, every distinct post-bump answer equal to a cold single solve
    of the mutated store; an IncrementalSession (K = 8192) through three
    epochs of 100 records, the last bit-identical to a cold frontier solve;
-   Borůvka beside Prim on phase 6's pair table (equal MST weight); peak
-   device memory;
+   then compact of the store (4 segments, 400 records): the compacted CSR
+   equal to the effective CSR taken just before, verify_store, and prepare
+   of the compacted store (ell_pad_rows=65536) with a warm pallas solve
+   bit-identical to the overlay store's; Borůvka beside Prim on phase 6's
+   pair table (equal MST weight); peak device memory; obs is on through the
+   phase, and its spans are summed by name (the epoch path's breakdown);
 10. the paper's distributed engine on one NCCL rank (mesh (1, 1)): the
    lvj_1k preset (mesh1d, bucket, max_iters=10_000, fuse_gather), mode
    "dense", the mesh_frontier preset (K = 8192, ell_width=32), clw_10k's
@@ -110,6 +114,19 @@ result):
    31047 frontier); scale 16 card against CPU (gloo) bit for bit in every
    config, and from a store with 1D edge, 1D ELL and 2D shards loaded per
    shard; no kernel launched;
+10b. observability on the card: the CLIs as processes at scale 16 in phase
+   10's shard directory (`python -m repro_torch.graphstore` build with
+   --trace and --metrics, partition, append, compact with fewer shard files
+   rewritten than there are, verify; `python -m repro_torch.obs validate`),
+   each exiting 0; then with obs on: a traced prepare and warm pallas solve
+   on phase 6's graph, bit-identical to phase 6's with launches = rounds,
+   its trace validated (prepare, prepare:ell_build, solve, 20 synthetic
+   round spans, convergence samples; solver_messages_total = the
+   telemetry's), its span beside the host clock, and warm solves with obs
+   off and on in turns (the overhead); phase 7's eight distinct keys
+   through a traced server (the serve spans; phase 7's answers); the
+   lvj_1k mesh preset with per-rank telemetry (its rank track; phase 6's
+   state and tree, phase 10's counters);
 11. a line of launches by path, then one JSON line with each kernel's
    launches on its paths (the top-K ones of phase 9 included), its error and
    mismatches against the plain version, and its time beside its bound and
@@ -1455,6 +1472,70 @@ def mst_weight(W, parent):
 SERVED = 50  # queries of phase 7's stream served before and after the deltas
 
 
+def span_sums(tracer):
+    """Seconds and count of the recorded spans by name (the synthetic round
+    spans, which subdivide their solve span, left out), longest first."""
+    sums = {}
+    for e in tracer.events():
+        if e["ph"] == "X" and not e.get("args", {}).get("synthetic_timing"):
+            s, k = sums.get(e["name"], (0.0, 0))
+            sums[e["name"]] = (s + e["dur"] / 1e6, k + 1)
+    return dict(sorted(sums.items(), key=lambda kv: -kv[1][0]))
+
+
+def compact_full_width(dev, store, path, seeds, pad_rows):
+    """Phase 9b's compaction: the store with its four segments (the
+    server's epoch and the session's three) folded by ``compact``; the
+    compacted CSR equal to the effective CSR taken just before, bit for bit;
+    ``verify_store``; and ``prepare`` of the compacted store with the same
+    ``ell_pad_rows`` plus a warm pallas solve, bit-identical to the overlay
+    store's.  Returns the record and the min-plus launches."""
+    import numpy as np
+
+    from repro_torch.delta import compact
+    from repro_torch.graphstore import verify_store
+    from repro_torch.kernels.minplus import minplus as kmod
+    from repro_torch.solver import SolverConfig, SteinerSolver
+
+    rec = {}
+    cfg = SolverConfig(backend="single", mode="pallas", ell_width=32, max_iters=10_000,
+                       ell_pad_rows=pad_rows)
+    n0 = kmod.minplus_call.launches
+    ho, rec["overlay_prepare_s"] = timed(lambda: SteinerSolver(cfg, device=dev).prepare(store))
+    timed(ho.solve, seeds)
+    overlay, rec["overlay_warm_s"] = timed(ho.solve, seeds)
+    eff = store.effective_csr()  # folded by the prepare above (cached on the store)
+    segments = len(store.manifest.get("deltas", ()))
+    del ho
+    stats, rec["compact_s"] = timed(compact, store)
+    rec["stats"] = {k: getattr(stats, k) for k in (
+        "epoch", "segments_folded", "records_folded", "m_before", "m_after", "seconds")}
+    if not (stats.segments_folded == segments == 4 and stats.records_folded == 400
+            and stats.m_after == eff[1].shape[0] == store.m and stats.seconds > 0
+            and store.overlay is None and stats.epoch == store.epoch):
+        raise AssertionError(f"compact: {rec['stats']} ({segments} segments, effective m "
+                             f"{eff[1].shape[0]}, store m {store.m})")
+    for name, want in zip(("indptr", "indices", "weights"), eff):
+        got = np.asarray(store.array(name))
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"compacted {name} differs from the effective CSR")
+    del eff
+    _, rec["verify_s"] = timed(verify_store, path)
+    hc, rec["compacted_prepare_s"] = timed(lambda: SteinerSolver(cfg, device=dev).prepare(store))
+    timed(hc.solve, seeds)
+    compacted, rec["compacted_warm_s"] = timed(hc.solve, seeds)
+    same_raw(compacted.raw, overlay.raw, "the compacted store's warm solve vs the overlay's")
+    rows = hc.artifact("ell").nbr.shape[0]
+    log(f"phase 9b: compact {rec['compact_s']:.3f} s ({stats.segments_folded} segments, "
+        f"{stats.records_folded} records folded, m {stats.m_before} -> {stats.m_after}, epoch "
+        f"{stats.epoch}); the compacted CSR = the effective CSR bit for bit; verify_store "
+        f"{rec['verify_s']:.3f} s; prepare (ELL {rows} rows) overlay "
+        f"{rec['overlay_prepare_s']:.3f} s, compacted {rec['compacted_prepare_s']:.3f} s; warm "
+        f"pallas solve overlay {rec['overlay_warm_s']:.3f} s, compacted "
+        f"{rec['compacted_warm_s']:.3f} s: state, MST, tree, counters and rows bit for bit")
+    return rec, kmod.minplus_call.launches - n0
+
+
 def phase9b_store_full_width(dev, h, single_in, g_host):
     """Phase 6's graph through a graph store at full width: build_store from
     phase 6's host edges into a temporary directory (removed at the end),
@@ -1472,6 +1553,7 @@ def phase9b_store_full_width(dev, h, single_in, g_host):
     import numpy as np
     import torch
 
+    from repro_torch import obs
     from repro_torch.core import steiner as smod
     from repro_torch.delta import IncrementalSession
     from repro_torch.graphstore import ArraySource, build_store, open_store
@@ -1486,6 +1568,7 @@ def phase9b_store_full_width(dev, h, single_in, g_host):
     rec, launches = {}, {}
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
+    obs.enable()  # the phase's spans: where the epoch path's time goes
     with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
         path = Path(tmp) / "rmat23.gstore"
         (_, ingest), rec["build_store_s"] = timed(
@@ -1617,6 +1700,8 @@ def phase9b_store_full_width(dev, h, single_in, g_host):
             f"(state, parent, D={cold.total_distance}, {cold.num_edges} edges; prepare + cold "
             f"solve {rec['frontier_cold_s']:.3f} s, {cold.telemetry.iterations} rounds)")
         del sess, cold
+        rec["compact"], launches["minplus_call (pallas, compacted and overlay stores)"] = (
+            compact_full_width(dev, store, path, seeds, 65536))
 
     # Borůvka beside Prim on phase 6's pair table
     dmat = ref.raw.dmat
@@ -1636,6 +1721,10 @@ def phase9b_store_full_width(dev, h, single_in, g_host):
                       same_tree=bool(torch.equal(parents["prim"], parents["boruvka"])))
     rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     rec["phase_s"] = time.perf_counter() - t_phase
+    rec["spans"] = span_sums(obs.tracer())
+    obs.reset()
+    log("phase 9b: spans by name (seconds, count): " + json.dumps(
+        {k: [round(v[0], 6), v[1]] for k, v in rec["spans"].items()}))
     log(f"phase 9b: MST of phase 6's pair table (S={S}): Prim {times['prim']} s, Borůvka "
         f"{times['boruvka']} s, equal weight {weights['prim']}, same tree "
         f"{rec['mst']['same_tree']}; peak {rec['peak_mem_gb']:.1f} GB; phase "
@@ -1841,14 +1930,16 @@ def same_as_single(res, single, what):
         raise AssertionError(f"{what}: total {res.total_distance} vs {float(tree.total_distance)}")
 
 
-def phase10_mesh(dev, h, single_in):
+def phase10_mesh(dev, h, single_in, in_shard_dir=None):
     """The paper's distributed engine on one NCCL rank: every MESH_RUNS
     config at full width on phase 6's graph and seeds (a cold and a warm
     solve, each state and tree = phase 6's single solve; Borůvka's = the
     single Borůvka tree of phase 6's state), a profiler pass over the bucket
     solve with the NCCL share of device time; the scale-10 fixed answers;
     scale 16 card against CPU in every config and from a store with all
-    three shard flavours.  Launches no kernel.  Returns the record."""
+    three shard flavours; then ``in_shard_dir(directory)`` (phase 10b's CLI
+    runs) before the shard directory goes.  Launches no kernel.  Returns the
+    record."""
     import tempfile
 
     import torch
@@ -1970,13 +2061,197 @@ def phase10_mesh(dev, h, single_in):
             log(f"phase 10: scale 16 {name} from the store's {flavour} (loaded per shard): "
                 f"card = CPU bit for bit, state and tree = the in-memory solve's (rounds "
                 f"{res['cpu'].iterations} against {card[name].iterations})")
+        if in_shard_dir is not None:
+            t0 = time.perf_counter()
+            rec["in_shard_dir"] = in_shard_dir(Path(tmp))
+            rec["in_shard_dir_s"] = time.perf_counter() - t0
     if (kmod.minplus_call.launches, kmod.minplus_blocked_call.launches) != launches0:
         raise AssertionError("the mesh path launched a min-plus kernel")
     dist.destroy_process_group()  # the world of one the backend made
-    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["phase_s"] = time.perf_counter() - t_phase - rec.get("in_shard_dir_s", 0.0)
     log(f"phase 10: {rec['phase_s']:.1f} s; no kernel launched (the mesh path runs the plain "
         f"ops)")
     return rec
+
+
+def cli_scale16(workdir):
+    """The two CLIs as processes at scale 16 in ``workdir``: build with
+    --trace and --metrics, partition into 4 blocks, append records local to
+    block 0, compact (fewer shard files rewritten than there are), verify,
+    and ``python -m repro_torch.obs validate`` of the build's trace.  Every
+    one must exit 0.  Returns the record."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+    store, trace, metrics = "cli16.gstore", "cli16_trace.json", "cli16_metrics.txt"
+    steps = (
+        ("repro_torch.graphstore", "--json", "--trace", trace, "--metrics", metrics, "build",
+         store, "--source", "rmat", "--scale", "16", "--edge-factor", "8"),
+        ("repro_torch.graphstore", "--json", "partition", store, "--blocks", "4"),
+        ("repro_torch.graphstore", "--json", "append", store, "--add", "1", "2", "3.5",
+         "--add", "100", "4000", "2.0", "--reweight", "1", "2", "4.5", "--delete", "7", "9"),
+        ("repro_torch.graphstore", "--json", "compact", store, "--verify"),
+        ("repro_torch.graphstore", "--json", "verify", store),
+        ("repro_torch.obs", "validate", trace, "--metrics", metrics, "--require-span",
+         "ingest:build_store"),
+    )
+    rec = {}
+    for module, *argv in steps:
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", module, *argv], cwd=workdir, env=env,
+                           capture_output=True, text=True, timeout=300)
+        secs = time.perf_counter() - t0
+        cmd = f"{module} {argv[argv.index(store) - 1] if store in argv else argv[0]}"
+        if p.returncode != 0:
+            raise AssertionError(f"python -m {' '.join([module, *argv])} exited "
+                                 f"{p.returncode}: {p.stderr[-2000:]}")
+        doc = json.loads(p.stdout) if "--json" in argv else p.stdout.strip()
+        rec[cmd] = {"s": secs, "out": doc}
+        log(f"phase 10b: python -m {' '.join([module, *argv])}: exit 0 in {secs:.2f} s")
+    comp = rec["repro_torch.graphstore compact"]["out"]
+    if not 0 < comp["shard_files_rewritten"] < comp["shard_files_total"]:
+        raise AssertionError(f"the CLI's compact rewrote {comp['shard_files_rewritten']} of "
+                             f"{comp['shard_files_total']} shard files")
+    log(f"phase 10b: CLI compact: {comp['records_folded']} records folded, "
+        f"{comp['shard_files_rewritten']} of {comp['shard_files_total']} shard files "
+        f"rewritten; obs validate: {rec['repro_torch.obs validate']['out']!r}")
+    return rec
+
+
+def phase10b_obs(dev, h, single_in, lanes_in, mesh_rec):
+    """Observability on the card, with obs on (reset and off at the end): a
+    traced prepare and warm solve on phase 6's graph (mode "pallas",
+    resident) bit-identical to phase 6's with as many launches, its trace
+    validated and holding the prepare, solve, 20 synthetic round spans and
+    convergence samples, the messages counter = telemetry.messages, the
+    solve span beside the host clock of the same solve, and warm solves
+    with obs off and on in turns; phase 7's eight distinct keys through a
+    traced server (the serve spans; the answers = phase 7's); the lvj_1k
+    mesh preset with per-rank telemetry (its rank track; state and tree =
+    phase 6's single solve, counters = phase 10's).  Returns the record and
+    the min-plus launches (single, lanes)."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import obs
+    from repro_torch.kernels.minplus import minplus as kmod
+    from repro_torch.serve import ServeConfig, SteinerServer
+    from repro_torch.solver import SteinerSolver
+
+    seeds, ref = single_in
+    distinct, out8, bcfg = lanes_in
+    rec = {}
+    t_phase = time.perf_counter()
+    launches = {"single": 0, "lanes": 0}
+    obs.reset()
+    obs.enable()
+    # the traced prepare (phase 6's graph and ELL view, memoized) and solve
+    ht = SteinerSolver(h.config, device=dev).prepare(h.graph)
+    n0 = kmod.minplus_call.launches
+    traced, rec["traced_solve_s"] = timed(ht.solve, seeds)
+    grew = kmod.minplus_call.launches - n0
+    launches["single"] += grew
+    same_raw(traced.raw, ref.raw, "the traced solve vs phase 6's")
+    t, t6 = traced.telemetry, ref.telemetry
+    if grew != t.iterations or not np.array_equal(t.per_round, t6.per_round):
+        raise AssertionError(f"traced solve: {grew} launches for {t.iterations} rounds; "
+                             f"rows equal {np.array_equal(t.per_round, t6.per_round)}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        if not obs.export_chrome_trace(str(Path(tmp) / "trace.json")):
+            raise AssertionError("no trace was recorded")
+        doc = json.loads((Path(tmp) / "trace.json").read_text())
+    n_events = obs.validate_chrome_trace(doc)
+    names = [e["name"] for e in doc["traceEvents"]]
+    rounds = [e for e in doc["traceEvents"] if e["name"] == "round[single/pallas]"]
+    if not ({"prepare", "prepare:ell_build", "solve"} <= set(names)
+            and len(rounds) == t.iterations == 20
+            and all(e["args"]["synthetic_timing"] for e in rounds)
+            and names.count("convergence[single/pallas]") == t.iterations):
+        raise AssertionError(f"the traced solve's trace: {sorted(set(names))}, "
+                             f"{len(rounds)} round spans")
+    samples = obs.parse_prometheus(obs.prometheus_text())
+    msgs = samples['solver_messages_total{backend="single",mode="pallas"}']
+    if msgs != t.messages:
+        raise AssertionError(f"solver_messages_total {msgs} != telemetry {t.messages}")
+    span = [e for e in doc["traceEvents"] if e["name"] == "solve"][-1]
+    rec.update(trace_events=n_events, solve_span_s=span["dur"] / 1e6, messages=msgs)
+    log(f"phase 10b: traced pallas solve = phase 6's bit for bit (state, MST, tree, counters, "
+        f"{t.iterations} rows), {grew} launches = its rounds; trace valid ({n_events} events: "
+        f"prepare, prepare:ell_build, solve, {len(rounds)} synthetic round spans, "
+        f"{names.count('convergence[single/pallas]')} convergence samples); "
+        f"solver_messages_total {msgs:.0f} = telemetry; solve span {rec['solve_span_s']:.6f} s "
+        f"beside host clock + sync {rec['traced_solve_s']:.6f} s")
+    # warm solves with obs off and on, in turns
+    turns = []
+    for on in (False, True, True, False):
+        (obs.enable if on else obs.disable)()
+        n0 = kmod.minplus_call.launches
+        out, secs = timed(ht.solve, seeds)
+        grew = kmod.minplus_call.launches - n0
+        launches["single"] += grew
+        if grew != t.iterations or out.total_distance != traced.total_distance:
+            raise AssertionError(f"obs {'on' if on else 'off'}: {grew} launches")
+        turns.append((on, secs))
+    off = [s for on, s in turns if not on]
+    on_ = [s for on, s in turns if on]
+    rec.update(turns=turns, overhead=sum(on_) / sum(off) - 1.0)
+    log(f"phase 10b: warm solves in turns (obs, s): " + ", ".join(
+        f"({'on' if on else 'off'}, {s:.6f})" for on, s in turns)
+        + f"; overhead {100 * rec['overhead']:+.3f} %")
+    obs.enable()
+    del ht, traced
+
+    # phase 7's eight distinct keys through a traced server
+    keys = [sorted(set(int(x) for x in row)) for row in distinct]
+    srv = SteinerServer(h.graph, ServeConfig(mode="pallas", buckets=(8, 16, 32),
+                                             max_batch=bcfg.batch_size), device=dev)
+    batches = []
+    recording_solve(srv, batches)
+    n0 = kmod.minplus_call.lane_launches
+    res, rec["served_s"] = timed(srv.query_many, keys)
+    launches["lanes"] += kmod.minplus_call.lane_launches - n0
+    want = [(float(out8.total_distance[i]), int(out8.num_edges[i])) for i in range(len(keys))]
+    got = [(r.total_distance, r.num_edges) for r in res]
+    if got != want or launches["lanes"] != sum(r for _, _, r in batches):
+        raise AssertionError(f"traced server: {got} vs phase 7's {want}; "
+                             f"{launches['lanes']} lane launches")
+    names = {e["name"] for e in obs.tracer().events()}
+    serve = ("serve:assemble", "serve:queue_wait", "serve:solve", "serve:stash")
+    if not set(serve) <= names:
+        raise AssertionError(f"traced server: spans {sorted(names)}")
+    log(f"phase 10b: phase 7's {len(keys)} distinct keys through a traced server in "
+        f"{rec['served_s']:.3f} s ({len(batches)} batches, {launches['lanes']} lane launches = "
+        f"their rounds): answers = phase 7's; spans {', '.join(serve)} recorded")
+    del srv
+
+    # the lvj_1k mesh preset with per-rank telemetry on the one NCCL rank
+    cfg = mesh_config("lvj_1k", telemetry_per_rank=True)
+    hm = SteinerSolver(cfg, device=dev).prepare(h.graph)
+    out, rec["mesh_solve_s"] = timed(hm.solve, seeds)
+    same_as_single(out.raw, ref.raw, "the traced lvj_1k mesh solve")
+    m10 = mesh_rec["runs"]["lvj_1k"]
+    t = out.telemetry
+    if (t.iterations, t.relaxations, t.messages) != (m10["rounds"], m10["relaxations"],
+                                                     m10["messages"]):
+        raise AssertionError("the traced mesh solve's counters differ from phase 10's")
+    names = {e["name"] for e in obs.tracer().events()}
+    track = [e for e in obs.tracer().events() if e["name"] == "rank[mesh1d/bucket/0]"]
+    if len(track) != t.per_rank.shape[0] or not {"prepare:partition", "prepare:place"} <= names:
+        raise AssertionError(f"the traced mesh solve: {len(track)} rank samples for "
+                             f"{t.per_rank.shape[0]} rows; spans {sorted(names)}")
+    log(f"phase 10b: lvj_1k mesh1d with per-rank telemetry, traced: {rec['mesh_solve_s']:.3f} "
+        f"s, state and tree = phase 6's single solve, counters = phase 10's; "
+        f"rank[mesh1d/bucket/0] track of {len(track)} samples")
+    del hm, out
+    dist.destroy_process_group()
+    rec["spans"] = span_sums(obs.tracer())
+    obs.reset()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 10b: {rec['phase_s']:.1f} s; spans by name (seconds, count): " + json.dumps(
+        {k: [round(v[0], 6), v[1]] for k, v in rec["spans"].items()}))
+    return rec, launches
 
 
 def kernel_times(dev, ell, st, blocked_in, lanes_in, seg_in, tally):
@@ -2210,10 +2485,16 @@ def main(argv=None) -> int:
     store_rec, store_launches = phase9b_store_full_width(dev, h, single_in, g_host)
     del g_host
     done("9b")
-    # ---- phase 10 (the mesh backends on one NCCL rank)
-    mesh_rec = phase10_mesh(dev, h, single_in)
-    del single_in
+    # ---- phase 10 (the mesh backends on one NCCL rank; the CLIs of phase 10b
+    # run in its shard directory)
+    mesh_rec = phase10_mesh(dev, h, single_in, in_shard_dir=cli_scale16)
     done("10")
+    # ---- phase 10b (observability on the card)
+    obs_rec, obs_launches = phase10b_obs(dev, h, single_in, lanes_in, mesh_rec)
+    obs_rec["cli"] = mesh_rec.pop("in_shard_dir")
+    obs_rec["cli_s"] = mesh_rec.pop("in_shard_dir_s")
+    del single_in
+    done("10b")
     times = kernel_times(dev, h.artifact("ell"), st, {"full": hb, "scale16": blocked16},
                          lanes_in, seg_in, tally)
     done("11")
@@ -2229,13 +2510,18 @@ def main(argv=None) -> int:
                "minplus_blocked_call (lanes, phase 8)": blocked_lane_launches,
                "segmin_bucketed_call (phase 2)": seg_launches,
                **{f"{k[:-1]}, phase 9)": v for k, v in sched_launches.items()},
-               **{f"{k[:-1]}, phase 9b)": v for k, v in store_launches.items()}}
+               **{f"{k[:-1]}, phase 9b)": v for k, v in store_launches.items()},
+               "minplus_call (traced pallas, phase 10b)": obs_launches["single"],
+               "minplus_call (lanes, traced server, phase 10b)": obs_launches["lanes"]}
     log(f"launches by path: {json.dumps(by_path)}")
     launches = {"minplus_call": rec["launches_per_solve"] * 4
                 + sched_launches["minplus_call (pallas_frontier)"]
-                + store_launches["minplus_call (pallas from a store)"],
+                + store_launches["minplus_call (pallas from a store)"]
+                + store_launches["minplus_call (pallas, compacted and overlay stores)"]
+                + obs_launches["single"],
                 "minplus_call (lanes)": lane_launches
-                + store_launches["minplus_call (lanes, store-backed server)"],
+                + store_launches["minplus_call (lanes, store-backed server)"]
+                + obs_launches["lanes"],
                 "minplus_blocked_call": blocked_launches
                 + sched_launches["minplus_blocked_call (pallas_frontier)"],
                 "minplus_blocked_call (lanes)": blocked_lane_launches,
@@ -2269,7 +2555,7 @@ def main(argv=None) -> int:
              "full_width": rec, "serving": serve_rec, "blocked_full_width": blocked_rec,
              "schedules_full_width": sched_rec, "scale16_lane_launches": lanes16,
              "scale16_store_launches": store16, "store_full_width": store_rec,
-             "mesh": mesh_rec, "launches_by_path": by_path,
+             "mesh": mesh_rec, "obs": obs_rec, "launches_by_path": by_path,
              "kernel_times": times, "kernels": kernels, "seconds": total_s}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -13,11 +13,13 @@ solver/    SolverConfig -> SteinerSolver.prepare(graph or store) -> solve(seeds)
            on one device, a batch, or a torch.distributed mesh of ranks
 serve/     query planning, the batched pipeline and the micro-batching
            SteinerServer with its LRU result cache (epoch-aware over a store)
-graphstore/ the on-disk ``*.gstore`` CSR layout: ingest, open, views
-delta/     edge deltas over a store: the log, its overlay, warm re-solves
-           and the incremental session
-obs/       the metrics registry the server counts into, the per-rank
-           flight recorder's analytics
+graphstore/ the on-disk ``*.gstore`` CSR layout: ingest, open, views,
+           shards, and the CLI ``python -m repro_torch.graphstore``
+delta/     edge deltas over a store: the log, its overlay, compaction, warm
+           re-solves and the incremental session
+obs/       metrics, spans, the Chrome trace recorder and per-round
+           telemetry (off until ``obs.enable()``), the per-rank flight
+           recorder's analytics, and ``python -m repro_torch.obs``
 data/      graph generators and seed selection (numpy-identical to ``repro``)
 convert    numpy arrays of the JAX package -> this package's objects
 
@@ -27,7 +29,7 @@ tensor takes the plain PyTorch version.  Every single-device schedule of
 the reference runs, for ``backend="single"`` and ``backend="batch"``, with
 Prim or Borůvka, over an in-memory graph or a graph store with its delta
 log; the mesh backends run the paper's distributed engine over
-``torch.distributed``.  Spans are not ported yet (see ROADMAP.md).
+``torch.distributed``.
 """
 
 __version__ = "0.1.0"

@@ -51,6 +51,7 @@ from typing import Iterable, Sequence, Tuple, Union
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.graphstore import format as fmt
 
 SEGMENT_MAGIC = b"GDLT"
@@ -221,27 +222,33 @@ def append_deltas(
         v = perm[v.astype(np.int64)].astype(np.int32)
     epoch = int(manifest.get("epoch", 0)) + 1
     rel = segment_name(epoch)
-    payload = _encode_segment(ops, u, v, w)
-    tmp = path / (rel + ".tmp")
-    with open(tmp, "wb") as h:
-        h.write(payload)
-        h.flush()
-        os.fsync(h.fileno())
-    tmp.replace(path / rel)
-    entry = {
-        "file": rel,
-        "epoch": epoch,
-        "count": int(ops.shape[0]),
-        "crc32": fmt.crc32_file(path / rel),
-    }
-    manifest.setdefault("deltas", []).append(entry)
-    manifest["epoch"] = epoch
-    # delta-bearing stores are a newer layout revision: pre-delta readers
-    # must refuse them instead of silently solving the stale base graph
-    manifest["format_version"] = fmt.FORMAT_VERSION_DELTA
-    mtmp = path / (fmt.MANIFEST_NAME + ".tmp")
-    mtmp.write_text(json.dumps(manifest, indent=1, sort_keys=True))
-    mtmp.replace(path / fmt.MANIFEST_NAME)
+    with obs.span("delta:append", store=str(path), epoch=epoch,
+                  records=int(ops.shape[0])):
+        payload = _encode_segment(ops, u, v, w)
+        tmp = path / (rel + ".tmp")
+        with open(tmp, "wb") as h:
+            h.write(payload)
+            h.flush()
+            os.fsync(h.fileno())
+        tmp.replace(path / rel)
+        entry = {
+            "file": rel,
+            "epoch": epoch,
+            "count": int(ops.shape[0]),
+            "crc32": fmt.crc32_file(path / rel),
+        }
+        manifest.setdefault("deltas", []).append(entry)
+        manifest["epoch"] = epoch
+        # delta-bearing stores are a newer layout revision: pre-delta
+        # readers must refuse them instead of silently solving the stale
+        # base graph
+        manifest["format_version"] = fmt.FORMAT_VERSION_DELTA
+        mtmp = path / (fmt.MANIFEST_NAME + ".tmp")
+        mtmp.write_text(json.dumps(manifest, indent=1, sort_keys=True))
+        mtmp.replace(path / fmt.MANIFEST_NAME)
+    g = obs.gauge("delta_epoch", "current epoch of the last touched store")
+    if g is not None:
+        g.set(float(epoch))
     if store is not None:
         store.reload(verify=False)
     return {"epoch": epoch, "count": int(ops.shape[0]), "file": rel}

@@ -32,6 +32,7 @@ from typing import Iterator, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.delta.log import OP_ADD, OP_DELETE, OP_REWEIGHT, read_segments
 
 
@@ -187,4 +188,5 @@ def fold_overlay(path, manifest: dict):
     """Replays a store's delta log; None when the log is empty."""
     if not manifest.get("deltas"):
         return None
-    return fold_segments(read_segments(path, manifest), int(manifest.get("epoch", 0)))
+    with obs.span("delta:replay", store=str(path), segments=len(manifest["deltas"])):
+        return fold_segments(read_segments(path, manifest), int(manifest.get("epoch", 0)))

@@ -6,7 +6,7 @@ stores.
 * :mod:`repro_torch.graphstore.format`  the ``.gstore`` layout, manifest,
   checksums, version gate
 * :mod:`repro_torch.graphstore.ingest`  the streaming CSR builder and edge
-  sources (chunked RMAT, in-memory arrays)
+  sources (chunked RMAT, SNAP/TSV, in-memory arrays)
 * :mod:`repro_torch.graphstore.loader`  ``open_store`` -> :class:`GraphStore`
   (lazy ``to_graph``, the ELL view filled on the device, shard loads)
 * :mod:`repro_torch.graphstore.partition`  per-shard partitioning for the
@@ -14,8 +14,10 @@ stores.
   reorder
 
 Mutation rides on top as the delta log (:mod:`repro_torch.delta`);
-``append_deltas`` is re-exported here.  Not ported: the ``graphstore``
-CLI, ``TsvEdgeSource`` and ``compact`` (ROADMAP.md).
+``append_deltas``, ``compact`` and ``CompactStats`` are re-exported here
+since they operate on stores.
+
+CLI: ``python -m repro_torch.graphstore {build,info,partition,append,compact,verify}``.
 """
 
 from repro_torch.graphstore.format import (
@@ -30,6 +32,7 @@ from repro_torch.graphstore.ingest import (
     ArraySource,
     IngestStats,
     RmatEdgeSource,
+    TsvEdgeSource,
     build_store,
     csr_from_chunks,
 )
@@ -45,27 +48,39 @@ from repro_torch.graphstore.partition import (
 )
 
 
-def __getattr__(name: str):
-    # lazy (PEP 562): repro_torch.delta imports this package's modules at
-    # import time, so an eager import here would be circular
-    if name == "append_deltas":
-        from repro_torch.delta.log import append_deltas
+# The delta layer's names are loaded lazily (PEP 562): repro_torch.delta
+# imports this package's modules at import time, so an eager import here
+# would be circular.
+_DELTA_EXPORTS = {
+    "append_deltas": "repro_torch.delta.log",
+    "compact": "repro_torch.delta.compact",
+    "CompactStats": "repro_torch.delta.compact",
+}
 
-        return append_deltas
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+def __getattr__(name: str):
+    mod = _DELTA_EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(mod), name)
 
 
 __all__ = [
     "FORMAT_VERSION",
     "FORMAT_VERSION_DELTA",
     "ChecksumError",
+    "CompactStats",
     "StoreFormatError",
     "StoreWriter",
     "append_deltas",
+    "compact",
     "verify_store",
     "ArraySource",
     "IngestStats",
     "RmatEdgeSource",
+    "TsvEdgeSource",
     "build_store",
     "csr_from_chunks",
     "GraphStore",

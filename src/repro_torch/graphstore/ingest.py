@@ -19,8 +19,14 @@ reports the measured maximum.
 
 Sources provided here: :class:`RmatEdgeSource` (chunked Graph500-style
 RMAT; the graph is a function of ``(scale, edge_factor, seed,
-block_edges)`` only) and :class:`ArraySource` (in-memory arrays sliced
-into chunks).
+block_edges)`` only), :class:`TsvEdgeSource` (SNAP-style ``u v [w]`` edge
+lists) and :class:`ArraySource` (in-memory arrays sliced into chunks).
+
+With :mod:`repro_torch.obs` enabled, an ingest records the spans
+``ingest:build_store``, ``ingest:pass1_degrees``, ``ingest:pass2_scatter``
+and one ``ingest:chunk`` a chunk and pass, the
+``graphstore_ingest_edges_total`` counter and two gauges, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Callable, Iterator, Optional, Tuple, Union
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.graphstore.format import StoreWriter
 
 Chunk = Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]
@@ -132,6 +139,66 @@ class RmatEdgeSource:
 
     def __iter__(self) -> Iterator[Chunk]:
         yield from _regroup(self._blocks(), self.chunk_edges)
+
+
+class TsvEdgeSource:
+    """SNAP-style whitespace-separated edge list: ``u v [w]`` per line.
+
+    Lines starting with ``#`` (SNAP headers) are skipped; a missing
+    weight column gets ``default_weight``.  ``n`` is taken from the
+    constructor or discovered with one extra streaming pass.
+    """
+
+    def __init__(
+        self,
+        path: Union[str, Path],
+        *,
+        n: Optional[int] = None,
+        default_weight: float = 1.0,
+        chunk_edges: int = DEFAULT_CHUNK_EDGES,
+    ):
+        self.path = Path(path)
+        self.default_weight = float(default_weight)
+        self.chunk_edges = int(chunk_edges)
+        self._n = n
+        self.describe = f"tsv({self.path.name})"
+
+    @property
+    def n(self) -> int:
+        if self._n is None:
+            hi = -1
+            for s, d, _ in self:
+                if s.size:
+                    hi = max(hi, int(s.max()), int(d.max()))
+            self._n = hi + 1
+        return self._n
+
+    def __iter__(self) -> Iterator[Chunk]:
+        src: list = []
+        dst: list = []
+        w: list = []
+        with open(self.path, "r") as f:
+            for line in f:
+                stripped = line.strip()
+                if not stripped or stripped.startswith("#"):
+                    continue
+                parts = stripped.split()
+                src.append(int(parts[0]))
+                dst.append(int(parts[1]))
+                w.append(float(parts[2]) if len(parts) > 2 else self.default_weight)
+                if len(src) >= self.chunk_edges:
+                    yield (
+                        np.asarray(src, np.int32),
+                        np.asarray(dst, np.int32),
+                        np.asarray(w, np.float32),
+                    )
+                    src, dst, w = [], [], []
+        if src:
+            yield (
+                np.asarray(src, np.int32),
+                np.asarray(dst, np.int32),
+                np.asarray(w, np.float32),
+            )
 
 
 class ArraySource:
@@ -249,17 +316,29 @@ def csr_two_pass(
     chunks = 0
     peak = 0
     wmin, wmax = np.inf, -np.inf
-    for chunk in source:
-        s, d, w, nbytes = _chunk_pairs(chunk, symmetrize)
-        _check_ids(s, d, n)
-        edges_in += chunk[0].shape[0]
-        chunks += 1
-        counts = np.bincount(s, minlength=n)
-        deg += counts
-        if w.size:
-            wmin = min(wmin, float(w.min()))
-            wmax = max(wmax, float(w.max()))
-        peak = max(peak, nbytes + counts.nbytes)
+    trace = obs.tracing()
+    with obs.span("ingest:pass1_degrees", n=n):
+        for chunk in source:
+            t_c = time.perf_counter()
+            s, d, w, nbytes = _chunk_pairs(chunk, symmetrize)
+            _check_ids(s, d, n)
+            edges_in += chunk[0].shape[0]
+            chunks += 1
+            counts = np.bincount(s, minlength=n)
+            deg += counts
+            if w.size:
+                wmin = min(wmin, float(w.min()))
+                wmax = max(wmax, float(w.max()))
+            peak = max(peak, nbytes + counts.nbytes)
+            if trace:
+                obs.add_span(
+                    "ingest:chunk",
+                    t_c,
+                    time.perf_counter(),
+                    phase="pass1",
+                    chunk=chunks - 1,
+                    edges=int(chunk[0].shape[0]),
+                )
 
     indptr = np.zeros(n + 1, np.int64)
     np.cumsum(deg, out=indptr[1:])
@@ -267,23 +346,34 @@ def csr_two_pass(
     indices, weights = alloc(m)
 
     cursor = indptr[:-1].copy()
-    for chunk in source:
-        s, d, w, nbytes = _chunk_pairs(chunk, symmetrize)
-        if s.size == 0:  # sources may legally yield empty chunks
-            continue
-        o = np.argsort(s, kind="stable")
-        ss, dd, ww = s[o], d[o], w[o]
-        # within-run offsets: position of each edge inside its vertex run
-        run_start = np.r_[0, np.flatnonzero(ss[1:] != ss[:-1]) + 1]
-        run_len = np.diff(np.r_[run_start, ss.shape[0]])
-        within = np.arange(ss.shape[0]) - np.repeat(run_start, run_len)
-        tgt = cursor[ss] + within
-        indices[tgt] = dd
-        weights[tgt] = ww
-        cursor[ss[run_start]] += run_len
-        nbytes += o.nbytes + ss.nbytes + dd.nbytes + ww.nbytes
-        nbytes += run_start.nbytes + run_len.nbytes + within.nbytes + tgt.nbytes
-        peak = max(peak, nbytes)
+    with obs.span("ingest:pass2_scatter", n=n, m=m):
+        for ci, chunk in enumerate(source):
+            t_c = time.perf_counter()
+            s, d, w, nbytes = _chunk_pairs(chunk, symmetrize)
+            if s.size == 0:  # sources may legally yield empty chunks
+                continue
+            o = np.argsort(s, kind="stable")
+            ss, dd, ww = s[o], d[o], w[o]
+            # within-run offsets: position of each edge inside its vertex run
+            run_start = np.r_[0, np.flatnonzero(ss[1:] != ss[:-1]) + 1]
+            run_len = np.diff(np.r_[run_start, ss.shape[0]])
+            within = np.arange(ss.shape[0]) - np.repeat(run_start, run_len)
+            tgt = cursor[ss] + within
+            indices[tgt] = dd
+            weights[tgt] = ww
+            cursor[ss[run_start]] += run_len
+            nbytes += o.nbytes + ss.nbytes + dd.nbytes + ww.nbytes
+            nbytes += run_start.nbytes + run_len.nbytes + within.nbytes + tgt.nbytes
+            peak = max(peak, nbytes)
+            if trace:
+                obs.add_span(
+                    "ingest:chunk",
+                    t_c,
+                    time.perf_counter(),
+                    phase="pass2",
+                    chunk=ci,
+                    edges=int(chunk[0].shape[0]),
+                )
 
     if not np.array_equal(cursor, indptr[1:]):
         raise RuntimeError(
@@ -340,14 +430,32 @@ def build_store(
             writer.create_array("weights", np.float32, (m,)),
         )
 
-    indptr, _, _, raw = csr_two_pass(n, source, alloc, symmetrize=symmetrize)
-    indptr_mm[...] = indptr
+    with obs.span(
+        "ingest:build_store",
+        out=str(out_path),
+        source=getattr(source, "describe", type(source).__name__),
+    ):
+        indptr, _, _, raw = csr_two_pass(n, source, alloc, symmetrize=symmetrize)
+        indptr_mm[...] = indptr
     dt = time.perf_counter() - t0
     stats = IngestStats(
         seconds=dt,
         edges_per_sec=raw["edges_in"] / dt if dt > 0 else 0.0,
         **raw,
     )
+    for name, help, value in (
+        ("graphstore_ingest_edges_per_sec", "last build_store throughput",
+         stats.edges_per_sec),
+        ("graphstore_ingest_peak_chunk_bytes",
+         "measured per-chunk transient peak of the last ingest",
+         stats.peak_chunk_bytes),
+    ):
+        gauge = obs.gauge(name, help)
+        if gauge is not None:
+            gauge.set(value)
+    ctr = obs.counter("graphstore_ingest_edges_total", "input edges streamed into stores")
+    if ctr is not None:
+        ctr.inc(stats.edges_in)
     writer.set_meta(
         n=n,
         m=stats.m_directed,

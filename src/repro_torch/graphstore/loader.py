@@ -20,19 +20,23 @@ rebuild the mesh backends' per-rank partitions from the shard files that
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Iterator, Optional, Tuple, Union
+from typing import TYPE_CHECKING, Iterator, Optional, Tuple, Union
 
 import numpy as np
-import torch
 
 from repro_torch.graphstore import format as fmt
+
+if TYPE_CHECKING:  # torch is imported where a view is built on a device, so
+    import torch   # the host tools (the CLI, compaction) never load it
 
 DEFAULT_COO_CHUNK_EDGES = 1 << 20
 
 
-def _host_tensor(a, dtype) -> torch.Tensor:
+def _host_tensor(a, dtype) -> "torch.Tensor":
     """A host array (a read-only memmap included) as a CPU tensor of
     ``dtype``; copies only where numpy must."""
+    import torch
+
     return torch.from_numpy(np.require(a, dtype, "W"))
 
 
@@ -44,7 +48,8 @@ class GraphStore:
     ``to_graph`` / ``ell`` yield the EFFECTIVE edge list (deletions
     filtered, reweights applied, additions appended), while
     ``indptr``/``indices``/``weights`` stay the raw base arrays.  ``epoch``
-    counts applied delta segments.
+    counts applied delta segments; ``compact()`` (in
+    :mod:`repro_torch.delta.compact`) folds the log back into a fresh CSR.
     """
 
     def __init__(self, path: Union[str, Path], *, verify: bool = True):
@@ -65,8 +70,9 @@ class GraphStore:
         self._eff_cache: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
 
     def reload(self, *, verify: bool = False) -> "GraphStore":
-        """Re-reads the manifest and delta log (after an append by this or
-        another process); drops cached memmaps and the effective CSR."""
+        """Re-reads the manifest and delta log (after an append or a compact
+        by this or another process); drops cached memmaps and the effective
+        CSR."""
         self._load_manifest(verify=verify)
         return self
 
@@ -121,7 +127,7 @@ class GraphStore:
         Shards written before deltas were appended describe the stale base
         graph; loading them would silently drop the mutations, so the
         shard-load paths gate on this.  Re-partitioning (which stamps the
-        current epoch) restores freshness.
+        current epoch) or compacting restores freshness.
         """
         meta = self.partition_meta
         if not meta:
@@ -316,6 +322,8 @@ def _ell_from_csr(
     lands at flat slot ``row_off[v] * k + j``; CSR order is already by
     source, so no sort is needed.
     """
+    import torch
+
     from repro_torch.core.graph import EllGraph
 
     dev = torch.device(device)

@@ -46,6 +46,7 @@ from typing import Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.graphstore import format as fmt
 from repro_torch.graphstore.format import StoreFormatError, StoreWriter
 from repro_torch.graphstore.loader import GraphStore
@@ -120,6 +121,24 @@ def _register_shards(
     _write_manifest(store)
 
 
+def _partition_gauges(scheme: str, counts: np.ndarray) -> None:
+    """Shard-balance gauges on the global obs registry (no-op when off)."""
+    total = obs.counter(
+        "graphstore_partition_edges_total",
+        "directed edges written into shards",
+        labels={"scheme": scheme},
+    )
+    if total is not None:
+        total.inc(int(counts.sum()))
+    balance = obs.gauge(
+        "graphstore_partition_balance",
+        "max/min shard edge counts of the last partition",
+        labels={"scheme": scheme},
+    )
+    if balance is not None:
+        balance.set(float(counts.max()) / max(1.0, float(counts.min())))
+
+
 def _rank_within_key(key: np.ndarray, running: np.ndarray) -> np.ndarray:
     """Per-edge sequence number within its key, continuing ``running``.
 
@@ -159,21 +178,25 @@ def partition_store(
     _clean_shards(shdir, "ell")  # geometry derives from the 1d meta
     counts = np.zeros((n_replica, n_blocks), np.int64)
     running = np.zeros(n_blocks, np.int64)
-    for s, d, w in store.iter_coo(chunk_edges):
-        blk = d.astype(np.int64) // nb
-        rep = _rank_within_key(blk, running) % n_replica
-        for r in range(n_replica):
-            mr = rep == r
-            if not mr.any():
-                continue
-            blk_r, s_r, d_r, w_r = blk[mr], s[mr], d[mr], w[mr]
-            for b in np.unique(blk_r):
-                mb = blk_r == b
-                _append_shard(
-                    shdir, _shard_stem("1d", r, int(b)),
-                    s_r[mb], d_r[mb], w_r[mb],
-                )
-                counts[r, int(b)] += int(mb.sum())
+    with obs.span(
+        "partition:1d", replicas=n_replica, blocks=n_blocks, m=store.m
+    ):
+        for s, d, w in store.iter_coo(chunk_edges):
+            blk = d.astype(np.int64) // nb
+            rep = _rank_within_key(blk, running) % n_replica
+            for r in range(n_replica):
+                mr = rep == r
+                if not mr.any():
+                    continue
+                blk_r, s_r, d_r, w_r = blk[mr], s[mr], d[mr], w[mr]
+                for b in np.unique(blk_r):
+                    mb = blk_r == b
+                    _append_shard(
+                        shdir, _shard_stem("1d", r, int(b)),
+                        s_r[mb], d_r[mb], w_r[mb],
+                    )
+                    counts[r, int(b)] += int(mb.sum())
+    _partition_gauges("1d", counts)
     meta = {
         "scheme": "1d",
         "n_replica": int(n_replica),
@@ -215,7 +238,7 @@ def load_partition(store: GraphStore):
         raise StoreFormatError(
             f"{store.path}: no 1D partition in manifest "
             f"(found {meta and meta.get('scheme')!r}) — run "
-            f"`partition_store` first"
+            f"`python -m repro_torch.graphstore partition` first"
         )
     R, B, nb = meta["n_replica"], meta["n_blocks"], meta["nb"]
     bm = meta["block_multiple"]
@@ -290,7 +313,7 @@ def partition_ell_store(
     if not meta or meta.get("scheme") != "1d":
         raise StoreFormatError(
             f"{store.path}: ELL shards ride the 1D partition geometry — "
-            f"run `partition_store` first "
+            f"run `python -m repro_torch.graphstore partition --scheme 1d` first "
             f"(found {meta and meta.get('scheme')!r})"
         )
     R, B, nb = meta["n_replica"], meta["n_blocks"], meta["nb"]
@@ -312,42 +335,43 @@ def partition_ell_store(
     shdir.mkdir(exist_ok=True)
     _clean_shards(shdir, "ell")
     counts = np.zeros((R, B), np.int64)
-    for v0 in range(0, n, chunk_vertices):
-        v1 = min(v0 + chunk_vertices, n)
-        r0, r1 = int(row_off[v0]), int(row_off[v1])
-        rows_c = r1 - r0
-        nbr = np.zeros((rows_c, k), np.int32)
-        wgt = np.full((rows_c, k), np.inf, np.float32)
-        row2v = np.repeat(
-            np.arange(v0, v1, dtype=np.int32), rows_per_v[v0:v1]
-        )
-        e0, e1 = int(indptr[v0]), int(indptr[v1])
-        if e1 > e0:
-            c = deg[v0:v1]
-            edge_v = np.repeat(np.arange(v0, v1, dtype=np.int64), c)
-            within = np.arange(e0, e1) - np.repeat(indptr[v0:v1], c)
-            flat = (row_off[edge_v] - r0) * k + within
-            nbr.reshape(-1)[flat] = indices[e0:e1]
-            wgt.reshape(-1)[flat] = weights[e0:e1]
-        blk = row2v.astype(np.int64) // nb
-        rep = (np.arange(r0, r1) - block_first_row[blk]) % R
-        for r in range(R):
-            mr = rep == r
-            if not mr.any():
-                continue
-            blk_r = blk[mr]
-            for b in np.unique(blk_r):
-                mb = mr.copy()
-                mb[mr] = blk_r == b
-                stem = _shard_stem("ell", r, int(b))
-                for (field, dtype), arr in zip(
-                    _ELL_FIELDS, (nbr[mb], wgt[mb], row2v[mb])
-                ):
-                    with open(shdir / f"{stem}_{field}.bin", "ab") as h:
-                        h.write(
-                            np.ascontiguousarray(arr, dtype=dtype).tobytes()
-                        )
-                counts[r, int(b)] += int(mb.sum())
+    with obs.span("partition:ell", k=k, replicas=R, blocks=B):
+        for v0 in range(0, n, chunk_vertices):
+            v1 = min(v0 + chunk_vertices, n)
+            r0, r1 = int(row_off[v0]), int(row_off[v1])
+            rows_c = r1 - r0
+            nbr = np.zeros((rows_c, k), np.int32)
+            wgt = np.full((rows_c, k), np.inf, np.float32)
+            row2v = np.repeat(
+                np.arange(v0, v1, dtype=np.int32), rows_per_v[v0:v1]
+            )
+            e0, e1 = int(indptr[v0]), int(indptr[v1])
+            if e1 > e0:
+                c = deg[v0:v1]
+                edge_v = np.repeat(np.arange(v0, v1, dtype=np.int64), c)
+                within = np.arange(e0, e1) - np.repeat(indptr[v0:v1], c)
+                flat = (row_off[edge_v] - r0) * k + within
+                nbr.reshape(-1)[flat] = indices[e0:e1]
+                wgt.reshape(-1)[flat] = weights[e0:e1]
+            blk = row2v.astype(np.int64) // nb
+            rep = (np.arange(r0, r1) - block_first_row[blk]) % R
+            for r in range(R):
+                mr = rep == r
+                if not mr.any():
+                    continue
+                blk_r = blk[mr]
+                for b in np.unique(blk_r):
+                    mb = mr.copy()
+                    mb[mr] = blk_r == b
+                    stem = _shard_stem("ell", r, int(b))
+                    for (field, dtype), arr in zip(
+                        _ELL_FIELDS, (nbr[mb], wgt[mb], row2v[mb])
+                    ):
+                        with open(shdir / f"{stem}_{field}.bin", "ab") as h:
+                            h.write(
+                                np.ascontiguousarray(arr, dtype=dtype).tobytes()
+                            )
+                    counts[r, int(b)] += int(mb.sum())
     _register_ell_shards(store, counts, k)
     return store.manifest["partition"]["ell"]
 
@@ -363,7 +387,8 @@ def load_partition_ell(store: GraphStore):
     if not meta or meta.get("scheme") != "1d" or "ell" not in meta:
         raise StoreFormatError(
             f"{store.path}: no 1D ELL partition in manifest — run "
-            f"`partition_store`, then `partition_ell_store(k=K)` first"
+            f"`python -m repro_torch.graphstore partition --scheme 1d "
+            f"--ell-width K` first"
         )
     nb, bm = meta["nb"], meta["block_multiple"]
     k = meta["ell"]["k"]
@@ -400,19 +425,21 @@ def partition_store_2d(
     _clean_shards(shdir, "2d")  # appends must start from empty files
     _clean_shards(shdir, "ell")  # keyed to the replaced partition meta
     counts = np.zeros((R * C,), np.int64)
-    for s, d, w in store.iter_coo(chunk_edges):
-        s64 = s.astype(np.int64)
-        d64 = d.astype(np.int64)
-        r = np.minimum((s64 // nf) // C, R - 1)
-        c = (d64 // nf) % C
-        dev = r * C + c
-        for dv in np.unique(dev):
-            md = dev == dv
-            _append_shard(
-                shdir, _shard_stem("2d", int(dv), 0),
-                s[md], d[md], w[md],
-            )
-            counts[int(dv)] += int(md.sum())
+    with obs.span("partition:2d", rows=R, cols=C, m=store.m):
+        for s, d, w in store.iter_coo(chunk_edges):
+            s64 = s.astype(np.int64)
+            d64 = d.astype(np.int64)
+            r = np.minimum((s64 // nf) // C, R - 1)
+            c = (d64 // nf) % C
+            dev = r * C + c
+            for dv in np.unique(dev):
+                md = dev == dv
+                _append_shard(
+                    shdir, _shard_stem("2d", int(dv), 0),
+                    s[md], d[md], w[md],
+                )
+                counts[int(dv)] += int(md.sum())
+    _partition_gauges("2d", counts)
     meta = {
         "scheme": "2d",
         "R": int(R),
@@ -502,20 +529,21 @@ def hub_sort_store(
     indptr_mm[...] = new_indptr
 
     old_indptr = np.asarray(store.indptr)
-    for v0 in range(0, n, chunk_vertices):
-        v1 = min(v0 + chunk_vertices, n)
-        ovs = order[v0:v1]
-        lens = deg[ovs]
-        tot = int(lens.sum())
-        if tot == 0:
-            continue
-        offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
-        gather = np.repeat(old_indptr[ovs], lens) + (
-            np.arange(tot) - np.repeat(offs, lens)
-        )
-        e0, e1 = int(new_indptr[v0]), int(new_indptr[v1])
-        indices_mm[e0:e1] = perm[np.asarray(store.indices[gather], np.int64)]
-        weights_mm[e0:e1] = store.weights[gather]
+    with obs.span("partition:hub_sort", n=n, m=m):
+        for v0 in range(0, n, chunk_vertices):
+            v1 = min(v0 + chunk_vertices, n)
+            ovs = order[v0:v1]
+            lens = deg[ovs]
+            tot = int(lens.sum())
+            if tot == 0:
+                continue
+            offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
+            gather = np.repeat(old_indptr[ovs], lens) + (
+                np.arange(tot) - np.repeat(offs, lens)
+            )
+            e0, e1 = int(new_indptr[v0]), int(new_indptr[v1])
+            indices_mm[e0:e1] = perm[np.asarray(store.indices[gather], np.int64)]
+            weights_mm[e0:e1] = store.weights[gather]
 
     prior = store.vertex_perm
     full_perm = perm if prior is None else perm[np.asarray(prior, np.int64)]

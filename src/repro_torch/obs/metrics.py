@@ -3,8 +3,9 @@
 A copy of ``repro.obs.metrics`` (stdlib + numpy only): a
 :class:`MetricsRegistry` holds named series (optionally labeled), and
 :meth:`MetricsRegistry.prometheus_text` dumps them in the Prometheus text
-exposition format.  The serve engine keeps a private registry per server
-instance (two servers in one process must not share counters).
+exposition format, which :func:`parse_prometheus` reads back.  The serve
+engine keeps a private registry per server instance (two servers in one
+process must not share counters).
 
 Histograms keep a bounded reservoir (newest ``reservoir`` observations)
 for p50/p99, plus exact running ``count``/``sum``.
@@ -235,3 +236,65 @@ class MetricsRegistry:
                     lab = _fmt_labels(labels)
                     lines.append(f"{name}{lab} {series.value:.9g}")
         return "\n".join(lines) + "\n"
+
+
+# A label body is a comma-separated list of name="value" items whose
+# quoted values may contain escaped quotes and backslashes, and therefore
+# also literal '}' and ',' characters.
+_LABEL_ITEM = r'[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*"'
+_SAMPLE_RE = re.compile(
+    r"^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)"
+    r"(?:\{(?P<labels>(?:" + _LABEL_ITEM + r"(?:," + _LABEL_ITEM + r")*)?,?)\})?"
+    r"\s+(?P<value>[^\s]+)\s*$"
+)
+_LABEL_ITEM_RE = re.compile(
+    r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"'
+)
+_UNESCAPE_RE = re.compile(r"\\(.)")
+_UNESCAPE_MAP = {"n": "\n", '"': '"', "\\": "\\"}
+
+
+def _unescape(v: str) -> str:
+    return _UNESCAPE_RE.sub(
+        lambda m: _UNESCAPE_MAP.get(m.group(1), m.group(0)), v
+    )
+
+
+def parse_prometheus(text: str) -> Dict[str, float]:
+    """Parses Prometheus text exposition into ``{sample_key: value}``.
+
+    A validation-grade parser (used by ``python -m repro_torch.obs
+    validate``), not a full client: it checks that every non-comment line is
+    a well-formed ``name[{labels}] value`` sample with a finite float
+    value, and raises ValueError otherwise.  Label values are unescaped
+    and re-serialized canonically (sorted label names, re-escaped), so
+    the keys round-trip :meth:`MetricsRegistry.prometheus_text` exactly —
+    including values containing ``"``, ``\\``, ``}``, ``,`` or newlines.
+    """
+    out: Dict[str, float] = {}
+    for lineno, line in enumerate(text.splitlines(), 1):
+        stripped = line.strip()
+        if not stripped or stripped.startswith("#"):
+            continue
+        m = _SAMPLE_RE.match(stripped)
+        if m is None:
+            raise ValueError(f"line {lineno}: not a Prometheus sample: {line!r}")
+        try:
+            value = float(m.group("value"))
+        except ValueError:
+            raise ValueError(
+                f"line {lineno}: bad sample value {m.group('value')!r}"
+            ) from None
+        labels_txt = m.group("labels")
+        if labels_txt:
+            pairs = tuple(
+                sorted(
+                    (lm.group(1), _unescape(lm.group(2)))
+                    for lm in _LABEL_ITEM_RE.finditer(labels_txt)
+                )
+            )
+            key = m.group("name") + _fmt_labels(pairs)
+        else:
+            key = m.group("name")
+        out[key] = value
+    return out

@@ -31,6 +31,11 @@ still exact and keeps serving; the rest are evicted (counted in
 from the retained per-key Voronoi state
 (:func:`repro_torch.delta.resolve.reset_affected`), so only the affected
 cells are relaxed again.  ``stats()`` keeps the reference's keys.
+
+With :mod:`repro_torch.obs` enabled the server records the reference's
+spans: ``serve:bump_epoch``, ``serve:warm_resolve``, ``serve:warmup``, and
+per batch ``serve:assemble``, ``serve:queue_wait`` (one a ticket),
+``serve:solve`` and ``serve:stash``.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.graph import Graph
 from repro_torch.core.tree import tree_edge_sets
 from repro_torch.core.voronoi import VoronoiState
@@ -350,18 +356,25 @@ class SteinerServer:
             changed = np.unique(np.asarray(changed, np.int64))
         self._changed_log.append((prev, self.epoch, changed))
         invalidated = revalidated = 0
-        for key, rec in list(self._states.items()):
-            epoch0, bucket, dist, lab, pred = rec
-            if changed is not None and epoch0 == prev and entry_survives(lab, changed, bucket):
-                # still the exact fixpoint at the new epoch
-                self._states[key] = (self.epoch, bucket, dist, lab, pred)
-                if key in self.cache:
-                    revalidated += 1
-        for key in self.cache.keys():
-            rec = self._states.get(key)
-            if rec is None or rec[0] != self.epoch:
-                self.cache.pop(key)
-                invalidated += 1
+        with obs.span(
+            "serve:bump_epoch",
+            from_epoch=prev,
+            epoch=self.epoch,
+            changed=0 if changed is None else int(changed.size),
+        ):
+            for key, rec in list(self._states.items()):
+                epoch0, bucket, dist, lab, pred = rec
+                if (changed is not None and epoch0 == prev
+                        and entry_survives(lab, changed, bucket)):
+                    # still the exact fixpoint at the new epoch
+                    self._states[key] = (self.epoch, bucket, dist, lab, pred)
+                    if key in self.cache:
+                        revalidated += 1
+            for key in self.cache.keys():
+                rec = self._states.get(key)
+                if rec is None or rec[0] != self.epoch:
+                    self.cache.pop(key)
+                    invalidated += 1
         self._m_invalidated.inc(invalidated)
         self._m_revalidated.inc(revalidated)
         self._g_epoch.set(float(self.epoch or 0))
@@ -453,8 +466,11 @@ class SteinerServer:
             seeds = self._vertex_perm[seeds]
         dev = self._handle.device
         st = VoronoiState(*(torch.from_numpy(x).to(dev) for x in (dist, lab, pred)))
-        warm, _, _ = reset_affected(st, seeds, changed, bucket)
-        out = self._warm_prepared().solve(seeds.astype(np.int32), warm_state=warm)
+        warm, cells, n_reset = reset_affected(st, seeds, changed, bucket)
+        with obs.span(
+            "serve:warm_resolve", bucket=plan.bucket, cells=int(cells.size), reset=n_reset,
+        ):
+            out = self._warm_prepared().solve(seeds.astype(np.int32), warm_state=warm)
         result = QueryResult(
             key=plan.key,
             bucket=plan.bucket,
@@ -485,7 +501,8 @@ class SteinerServer:
                 planmod.pad_seed_set((min(u, v), max(u, v)), b),
                 (self._handle.config.batch_size, 1),
             )
-            self._execute(b, batch)
+            with obs.span("serve:warmup", bucket=b):
+                self._execute(b, batch)
 
     def _execute(self, bucket: int, seed_batch: np.ndarray, n_real: Optional[int] = None):
         """One fixed-shape (max_batch, bucket) batch.
@@ -527,6 +544,7 @@ class SteinerServer:
                 # batch; a result with from_cache=False came from a warm
                 # re-solve during assembly
                 riders: List[Tuple[_Pending, Optional[QueryResult], bool]] = []
+                t_assemble = time.perf_counter()
                 while queue and len(lanes) < B:
                     p = queue.popleft()
                     hit = self.cache.get(p.plan.key)
@@ -542,15 +560,23 @@ class SteinerServer:
                     riders.append((p, hit, from_cache))
                 t_assembled = time.perf_counter()
                 t_done = t_assembled
+                if obs.tracing():
+                    obs.add_span("serve:assemble", t_assemble, t_assembled, bucket=bucket,
+                                 lanes=len(lanes), riders=len(riders))
+                    # a retroactive queue-wait span for each ticket of the batch
+                    for p, _, _ in riders:
+                        obs.add_span("serve:queue_wait", p.t_submit, t_assembled,
+                                     ticket=p.ticket, bucket=bucket)
                 fresh_by_key: Dict[Tuple[int, ...], QueryResult] = {}
                 if lanes:
                     n_real = len(lanes)
                     while len(lanes) < B:  # inert batch-dim padding
                         lanes.append(lanes[0])
                     try:
-                        totals, nedges, edges, res = self._execute(
-                            bucket, np.stack(lanes), n_real
-                        )
+                        with obs.span("serve:solve", bucket=bucket, lanes=n_real):
+                            totals, nedges, edges, res = self._execute(
+                                bucket, np.stack(lanes), n_real
+                            )
                     except Exception:
                         # the riders were already popped: put them back (in
                         # order) and stash the results of the batches this
@@ -583,6 +609,7 @@ class SteinerServer:
                         if capture:
                             s = res.state
                             self._store_state(key, bucket, s.dist[i], s.lab[i], s.pred[i])
+                t_stash = time.perf_counter()
                 for p, hit, from_cache in riders:
                     if hit is None:
                         hit = fresh_by_key[p.plan.key]
@@ -597,6 +624,9 @@ class SteinerServer:
                     lat = ready_at - p.t_submit
                     self._m_lat["cached" if from_cache else "fresh"].observe(lat)
                     out[p.ticket] = hit.with_latency(lat, from_cache)
+                if obs.tracing():
+                    obs.add_span("serve:stash", t_stash, time.perf_counter(), bucket=bucket,
+                                 results=len(riders))
                 self._t_last = t_done
         self._g_queue_depth.set(float(self.pending()))
         return out

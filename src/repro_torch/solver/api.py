@@ -17,6 +17,11 @@ calls); ``mesh_shape=(1, 1)`` needs no setup.  ``prepare`` also takes an on-disk
 handle follows the store's delta log with :meth:`PreparedGraph.refresh`.
 The solver runs on ``device="cuda"`` unless given another device; with no
 CUDA device present the default raises instead of running on the CPU.
+
+With :mod:`repro_torch.obs` enabled, ``prepare``, ``refresh`` and ``solve``
+record spans, ``solve`` its seconds and messages and its per-round
+telemetry (as the reference's); with obs off, ``solve`` takes the same path
+as if obs did not exist.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.mesh import rank_device
 from repro_torch.solver.config import SolverConfig
 from repro_torch.solver.registry import SolveOutput, get_backend
@@ -94,7 +100,10 @@ class PreparedGraph:
         store.reload(verify=False)
         if store.epoch == self.epoch:
             return {"refreshed": (), "from_epoch": self.epoch, "epoch": store.epoch}
-        self._artifacts = self._backend.prepare(self.config, store, self.device)
+        with obs.span(
+            "refresh", backend=self.backend, from_epoch=self.epoch, to_epoch=store.epoch,
+        ):
+            self._artifacts = self._backend.prepare(self.config, store, self.device)
         self.graph = self._artifacts["graph"]
         prev, self.epoch = self.epoch, store.epoch
         return {"refreshed": tuple(sorted(k for k in self._artifacts if k != "store")),
@@ -127,9 +136,36 @@ class PreparedGraph:
                 f"{tuple(seeds.shape)}"
             )
         kw = {} if warm_state is None else {"warm_state": warm_state}
-        return self._backend.solve(
-            self.config, self._artifacts, seeds, int(seeds.shape[-1]), **kw
+        num_seeds = int(seeds.shape[-1])
+        if not obs.enabled():
+            return self._backend.solve(self.config, self._artifacts, seeds, num_seeds, **kw)
+        # The backend's solve ends in one fetch of its totals and counters
+        # to the host, so the span covers the device's work with no sync
+        # of its own.
+        cfg = self.config
+        labels = {"backend": self.backend, "mode": cfg.mode}
+        t0 = obs.now()
+        with obs.span("solve", backend=self.backend, mode=cfg.mode, num_seeds=num_seeds):
+            out = self._backend.solve(cfg, self._artifacts, seeds, num_seeds, **kw)
+        t1 = obs.now()
+        hist = obs.histogram(
+            "solver_solve_seconds", "wall time of one PreparedGraph.solve", labels=labels
         )
+        if hist is not None:
+            hist.observe(t1 - t0)
+        if out.telemetry is not None:
+            ctr = obs.counter(
+                "solver_messages_total",
+                "candidate transmissions attempted across solves",
+                labels=labels,
+            )
+            if ctr is not None:
+                ctr.inc(out.telemetry.messages)
+            obs.emit_round_telemetry(
+                out.telemetry.per_round, t0, t1, label=f"{self.backend}/{cfg.mode}",
+                per_rank=out.telemetry.per_rank,
+            )
+        return out
 
 
 class SteinerSolver:
@@ -150,5 +186,6 @@ class SteinerSolver:
         :class:`~repro_torch.core.graph.Graph` (moved to the solver's device
         if it lives elsewhere) or an on-disk
         :class:`~repro_torch.graphstore.GraphStore` (materialized on it)."""
-        artifacts = self._backend.prepare(self.config, graph, self.device)
+        with obs.span("prepare", backend=self.config.backend, mode=self.config.mode):
+            artifacts = self._backend.prepare(self.config, graph, self.device)
         return PreparedGraph(self.config, self._backend, artifacts, self.device)

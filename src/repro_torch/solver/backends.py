@@ -38,6 +38,10 @@ The mesh backends run SPMD, one process a mesh position
 arguments, partitions on the host (or loads its store's shards when they
 are fresh and match ``mesh_shape``), keeps only its own shard on its device,
 and returns the same answer.  A mesh of one position needs no setup.
+
+With :mod:`repro_torch.obs` on, ``prepare`` records the reference's
+sub-spans: "prepare:materialize" and "prepare:ell_build" (single, batch),
+"prepare:partition" or "prepare:shard_load", then "prepare:place" (mesh).
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import dist_steiner as d1
 from repro_torch.core import dist_steiner_2d as d2
 from repro_torch.core import steiner as smod
@@ -103,9 +108,12 @@ class _Backend:
         in-memory graph's ELL view is the memoized ``ell_view_cached``.
         """
         if isinstance(g, GraphStore):
-            art = {"graph": g.to_graph(device=device), "store": g}
+            with obs.span("prepare:materialize", backend=self.name):
+                art = {"graph": g.to_graph(device=device), "store": g}
             if cfg.mode in self.ell_modes:
-                art["ell"] = g.ell(cfg.ell_width, pad_rows_to=cfg.ell_pad_rows, device=device)
+                with obs.span("prepare:ell_build", backend=self.name):
+                    art["ell"] = g.ell(cfg.ell_width, pad_rows_to=cfg.ell_pad_rows,
+                                       device=device)
             return art
         if not isinstance(g, Graph):
             raise TypeError(
@@ -114,7 +122,8 @@ class _Backend:
         g = g.to(device)
         art = {"graph": g}
         if cfg.mode in self.ell_modes:
-            art["ell"] = ell_view_cached(g, cfg.ell_width)
+            with obs.span("prepare:ell_build", backend=self.name):
+                art["ell"] = ell_view_cached(g, cfg.ell_width)
         return art
 
 
@@ -343,6 +352,13 @@ def _mesh_output(res, cfg: SolverConfig) -> SolveOutput:
     )
 
 
+def _partition_span(backend: str, from_shards: bool):
+    """The span of a mesh prepare's partition: "prepare:shard_load" when it
+    loads a store's shards, else "prepare:partition"."""
+    return obs.span("prepare:shard_load" if from_shards else "prepare:partition",
+                    backend=backend)
+
+
 def _store_scheme(store, scheme: str, dims, ell_k=None) -> bool:
     """True when ``store`` holds fresh shards of ``scheme`` cut for ``dims``
     (and ELL shards of width ``ell_k``)."""
@@ -366,8 +382,10 @@ class _MeshBackend(_Backend):
         mesh = device_mesh(cfg.mesh_shape, ("data", "model"))
         rows = arrays[0].shape[0] // mesh.size
         key = "ellpart" if cfg.mode == "frontier" else "part"
+        with obs.span("prepare:place", backend=self.name):
+            edges = _shard(arrays, mesh.rank, rows, device)
         art = {"graph": g, "mesh": mesh, key: part, "from_shards": from_shards,
-               "edges": _shard(arrays, mesh.rank, rows, device)}
+               "edges": edges}
         if isinstance(g, GraphStore):
             art["store"] = g
         return art
@@ -406,28 +424,29 @@ class Mesh1DBackend(_MeshBackend):
         frontier = cfg.mode == "frontier"
         shards = isinstance(g, GraphStore) and _store_scheme(
             g, "1d", (R, B), cfg.ell_width if frontier else None)
-        if frontier:
-            if shards:
-                part = g.load_partition_ell()
-            elif isinstance(g, GraphStore):
-                part = d1.partition_ell(g.ell(cfg.ell_width, device=device), n_replica=R,
-                                        n_blocks=B)
+        with _partition_span(self.name, shards):
+            if frontier:
+                if shards:
+                    part = g.load_partition_ell()
+                elif isinstance(g, GraphStore):
+                    part = d1.partition_ell(g.ell(cfg.ell_width, device=device),
+                                            n_replica=R, n_blocks=B)
+                else:
+                    part = graph_cached(g, ("partition_ell", cfg.ell_width, R, B),
+                                        lambda: d1.partition_ell(
+                                            ell_view_cached(g, cfg.ell_width),
+                                            n_replica=R, n_blocks=B))
+            elif shards:
+                part = g.load_partition()
+            elif isinstance(g, GraphStore):  # the store already holds both directions
+                part = d1.partition_edges(*g.coo(), g.n, n_replica=R, n_blocks=B,
+                                          symmetrize=False)
             else:
-                part = graph_cached(g, ("partition_ell", cfg.ell_width, R, B),
-                                    lambda: d1.partition_ell(ell_view_cached(g, cfg.ell_width),
-                                                             n_replica=R, n_blocks=B))
-            return self._prepared(cfg, g, device, part, (part.nbr, part.wgt, part.row2v),
-                                  shards)
-        if shards:
-            part = g.load_partition()
-        elif isinstance(g, GraphStore):  # the store already holds both directions
-            part = d1.partition_edges(*g.coo(), g.n, n_replica=R, n_blocks=B,
-                                      symmetrize=False)
-        else:
-            # g is already symmetric and padded; its padding edges stay inert
-            part = graph_cached(g, ("partition_1d", R, B), lambda: d1.partition_edges(
-                *_host_edges(g), g.n, n_replica=R, n_blocks=B, symmetrize=False))
-        return self._prepared(cfg, g, device, part, (part.src, part.dst, part.w), shards)
+                # g is already symmetric and padded; its padding edges stay inert
+                part = graph_cached(g, ("partition_1d", R, B), lambda: d1.partition_edges(
+                    *_host_edges(g), g.n, n_replica=R, n_blocks=B, symmetrize=False))
+        arrays = (part.nbr, part.wgt, part.row2v) if frontier else (part.src, part.dst, part.w)
+        return self._prepared(cfg, g, device, part, arrays, shards)
 
     def solve_prepared(
         self,
@@ -488,13 +507,14 @@ class Mesh2DBackend(_MeshBackend):
         R, C = cfg.mesh_shape
         device_mesh(cfg.mesh_shape, ("data", "model"))
         shards = isinstance(g, GraphStore) and _store_scheme(g, "2d", (R, C))
-        if shards:
-            part = g.load_partition_2d()
-        elif isinstance(g, GraphStore):
-            part = d2.partition_edges_2d(*g.coo(), g.n, R=R, C=C, symmetrize=False)
-        else:
-            part = graph_cached(g, ("partition_2d", R, C), lambda: d2.partition_edges_2d(
-                *_host_edges(g), g.n, R=R, C=C, symmetrize=False))
+        with _partition_span(self.name, shards):
+            if shards:
+                part = g.load_partition_2d()
+            elif isinstance(g, GraphStore):
+                part = d2.partition_edges_2d(*g.coo(), g.n, R=R, C=C, symmetrize=False)
+            else:
+                part = graph_cached(g, ("partition_2d", R, C), lambda: d2.partition_edges_2d(
+                    *_host_edges(g), g.n, R=R, C=C, symmetrize=False))
         return self._prepared(cfg, g, device, part, (part.src_row, part.dst_col, part.w),
                               shards)
 

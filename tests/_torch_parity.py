@@ -7,6 +7,8 @@ and the port runs with ``device="cpu"``, its plain PyTorch path.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -54,3 +56,17 @@ def assert_same(a, b):
     assert a.shape == b.shape, (a.shape, b.shape)
     assert a.dtype == b.dtype, (a.dtype, b.dtype)
     np.testing.assert_array_equal(a, b)
+
+
+def assert_same_output(a, b, path="out"):
+    """Two results of the port bit-equal, field by field: tensors, arrays,
+    dataclasses (a SolveOutput and what it holds) and scalars alike."""
+    if isinstance(a, torch.Tensor):
+        assert torch.equal(a, b), path
+    elif isinstance(a, np.ndarray):
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    elif dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            assert_same_output(getattr(a, f.name), getattr(b, f.name), f"{path}.{f.name}")
+    else:
+        assert a == b, path

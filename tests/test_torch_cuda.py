@@ -693,3 +693,108 @@ def test_mesh_on_card_matches_cpu(cuda, kw):
         if x is not None:
             np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=f)
     assert out[str(cuda)].telemetry.per_round.shape == out["cpu"].telemetry.per_round.shape
+
+
+def _same_solve(a, b):
+    """Two SolveOutputs bit for bit: state, MST, tree, counters, rows."""
+    for f in ("dist", "lab", "pred"):
+        assert torch.equal(getattr(a.raw.state, f).cpu(), getattr(b.raw.state, f).cpu()), f
+    assert torch.equal(a.raw.parent.cpu(), b.raw.parent.cpu())
+    for f in ("in_tree_vertex", "path_edge", "bridge_u", "bridge_v", "bridge_w"):
+        assert torch.equal(getattr(a.raw.tree, f).cpu(), getattr(b.raw.tree, f).cpu()), f
+    np.testing.assert_array_equal(np.asarray(a.total_distance), np.asarray(b.total_distance))
+    np.testing.assert_array_equal(np.asarray(a.num_edges), np.asarray(b.num_edges))
+    ta, tb = a.telemetry, b.telemetry
+    assert (ta.iterations, ta.relaxations, ta.messages) == (tb.iterations, tb.relaxations,
+                                                           tb.messages)
+    np.testing.assert_array_equal(ta.per_round, tb.per_round)
+
+
+@pytest.fixture
+def traced():
+    from repro_torch import obs
+
+    obs.reset()
+    yield obs
+    obs.reset()
+
+
+def test_traced_pallas_solve_on_card_equals_untraced(cuda, traced):
+    """Scale 10, mode "pallas" on the card: a solve with obs on equals the
+    same handle's solve with obs off bit for bit, with as many kernel
+    launches (one a round); the trace validates and holds the solve, its
+    synthetic round spans and its messages counter."""
+    src, dst, w, n = rmat_edges(10, 8, max_weight=100, seed=0)
+    seeds = select_seeds(n, src, dst, 16, strategy="uniform", seed=1000)
+    g = from_edges(src, dst, w, n, pad_to=8, device=cuda)
+    h = SteinerSolver(SolverConfig(mode="pallas"), device=cuda).prepare(g)
+    h.solve(seeds)
+    runs = []
+    for on in (False, True):
+        if on:
+            traced.enable()
+            h = SteinerSolver(SolverConfig(mode="pallas"), device=cuda).prepare(g)
+        n0 = tmp.minplus_call.launches
+        out = h.solve(seeds)
+        runs.append((out, tmp.minplus_call.launches - n0))
+    (off, l_off), (on, l_on) = runs
+    _same_solve(off, on)
+    assert l_off == l_on == on.telemetry.iterations
+    doc = traced.tracer().chrome_trace()
+    names = [e["name"] for e in doc["traceEvents"]]
+    assert traced.validate_chrome_trace(doc) == len(names) - 1
+    assert {"prepare", "prepare:ell_build", "solve"} <= set(names)
+    assert names.count("round[single/pallas]") == on.telemetry.iterations
+    samples = traced.parse_prometheus(traced.prometheus_text())
+    assert samples['solver_messages_total{backend="single",mode="pallas"}'] == \
+        on.telemetry.messages
+
+
+def test_traced_served_batch_on_card_equals_untraced(cuda, traced):
+    """Scale 10, a batch of distinct keys through a pallas server, untraced
+    then traced: the same answers with as many lane-kernel launches, and the
+    four serve spans recorded."""
+    src, dst, w, n = rmat_edges(10, 8, max_weight=100, seed=0)
+    g = from_edges(src, dst, w, n, pad_to=8, device=cuda)
+    rng = np.random.default_rng(3)
+    keys = [rng.choice(n, size=12, replace=False).tolist() for _ in range(8)]
+    runs = []
+    for on in (False, True):
+        if on:
+            traced.enable()
+        srv = SteinerServer(g, ServeConfig(mode="pallas", buckets=(16,), max_batch=8),
+                            device=cuda)
+        n0 = tmp.minplus_call.launches
+        res = srv.query_many(keys)
+        runs.append(([(r.total_distance, r.num_edges) for r in res],
+                     tmp.minplus_call.launches - n0))
+    assert runs[0] == runs[1] and runs[0][1] > 0
+    names = {e["name"] for e in traced.tracer().events()}
+    assert {"serve:assemble", "serve:queue_wait", "serve:solve", "serve:stash"} <= names
+
+
+def test_compacted_store_on_card_solves_like_overlay(cuda, tmp_path):
+    """Scale 10 with two delta segments: the overlay store and its compacted
+    copy, prepared on the card with the same ell_pad_rows, solve bit for bit
+    alike (and like the CPU's solve of the compacted store)."""
+    import shutil
+
+    from repro_torch.delta import append_deltas, compact
+    from repro_torch.graphstore import ArraySource, build_store, open_store
+
+    src, dst, w, n = rmat_edges(10, 8, max_weight=100, seed=0)
+    seeds = select_seeds(n, src, dst, 16, strategy="uniform", seed=1000)
+    path, _ = build_store(ArraySource(src, dst, w, n), tmp_path / "g.gstore")
+    rng = np.random.default_rng(2)
+    for k in (40, 25):
+        append_deltas(path, _mixed_records(rng, n, src, dst, k))
+    cpath = tmp_path / "c.gstore"
+    shutil.copytree(path, cpath)
+    stats = compact(cpath, verify=True)
+    assert stats.records_folded == 65 and stats.epoch == 2
+    cfg = SolverConfig(mode="pallas", ell_pad_rows=256)
+    overlay = SteinerSolver(cfg, device=cuda).prepare(open_store(path)).solve(seeds)
+    compacted = SteinerSolver(cfg, device=cuda).prepare(open_store(cpath)).solve(seeds)
+    cpu = SteinerSolver(cfg, device="cpu").prepare(open_store(cpath)).solve(seeds)
+    _same_solve(overlay, compacted)
+    _same_solve(compacted, cpu)
