@@ -101,7 +101,8 @@ result):
    bit-identical to the overlay store's; Borůvka beside Prim on phase 6's
    pair table (equal MST weight); peak device memory; obs is on through the
    phase, and its spans are summed by name (the epoch path's breakdown);
-10. the paper's distributed engine on one NCCL rank (mesh (1, 1)): the
+10. the paper's distributed engine on one NCCL rank (mesh (1, 1)), its
+   configs built from repro_torch.configs.steiner's SOLVER_PRESETS: the
    lvj_1k preset (mesh1d, bucket, max_iters=10_000, fuse_gather), mode
    "dense", the mesh_frontier preset (K = 8192, ell_width=32), clw_10k's
    knobs at S = 1024 (pair_chunks=8, lab_i16), Borůvka, per-rank telemetry
@@ -126,18 +127,35 @@ result):
    off and on in turns (the overhead); phase 7's eight distinct keys
    through a traced server (the serve spans; phase 7's answers); the
    lvj_1k mesh preset with per-rank telemetry (its rank track; phase 6's
-   state and tree, phase 10's counters);
-11. a line of launches by path, then one JSON line with each kernel's
+   state and tree, phase 10's counters); then each kernel timed against
+   its plain version (the lane kernel at the eight-key batch's state, at
+   B = 1 against the single kernel, and at B = 1, 2, 4, 8 on the first
+   lanes of that state; the record packing alone; the blocked kernel at
+   full width, single and at the eight-key state, beside the resident
+   kernel on the same inputs, the layout's build and its plain fold, over a
+   few slice budgets and lane groups (the choice of the package's
+   constants), and at its scale-16 shape);
+11. the trainer (repro_torch.launch.train and the LM stack under it), with
+   the Steiner phases' state freed: starcoder2-3b at full width and all 30
+   layers (4.31B params, bf16, f32 AdamW moments, initialized on the card
+   from a seed), three steps on one repeated (8, 64) batch (train.py's
+   defaults; the loss falls at every step), three on TokenStream batches,
+   a breakdown of one step (forward, forward + recomputed forward +
+   backward, the update, a profiler pass) and one step at (1, 4096)
+   (train_4k's length, its global batch cut from 256 to 1), each with its
+   seconds, tokens/s, peak memory and model-FLOPs share of the bf16 peak;
+   decode of 8 tokens with a (2, 64) cache against forward's logits (in
+   f32 and in bf16 against the model's bf16 noise floor); train() at
+   examples/torch_train_lm.py's 100m preset, 24 steps, crashed at step 17
+   and relaunched, its final loss equal to an uninterrupted run's (rtol
+   1e-4); the five reduced LM configs (f32) card against CPU (a train
+   step's loss and gradients, two decode steps, an 8-bit AdamW step); no
+   kernel launched;
+12. a line of launches by path, then one JSON line with each kernel's
    launches on its paths (the top-K ones of phase 9 included), its error and
    mismatches against the plain version, and its time beside its bound and
-   the plain version's time (the lane kernel at the eight-key batch's
-   state, at B = 1 against the single kernel, and at B = 1, 2, 4, 8 on the
-   first lanes of that state; the record packing alone; the blocked kernel
-   at full width, single and at the eight-key state, beside the resident
-   kernel on the same inputs, the layout's build and its plain fold, over
-   a few slice budgets and lane groups (the choice of the package's
-   constants), and at its scale-16 shape);
-12. last line: {"ok": true, "device": {...}}.
+   the plain version's time;
+13. last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one card.
 """
@@ -145,7 +163,9 @@ Imports nothing of JAX and nothing of the JAX package.  Needs one card.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1868,18 +1888,18 @@ def phase7_serving(dev, h):
     return rec, lane_launches, (distinct, out8, server._handle.config)
 
 
-# Phase 10's configurations: the repo's paper presets
-# (src/repro/configs/steiner.py) cut from a (16, 16) mesh to one rank
-MESH_PRESET = dict(backend="mesh1d", mode="bucket", mst_algo="prim", max_iters=10_000,
-                   mesh_shape=(1, 1), fuse_gather=True)
+# Phase 10's configurations: the paper presets (repro_torch.configs.steiner,
+# the reference's src/repro/configs/steiner.py) cut from a (16, 16) mesh to
+# one rank, and beside them dense, Borůvka, per-rank telemetry and mesh2d
+# over lvj_1k's: (name, preset, knobs)
 MESH_RUNS = (
-    ("lvj_1k", {}),
-    ("dense", dict(mode="dense")),
-    ("mesh_frontier", dict(mode="frontier", ell_width=32, frontier_size=8192)),
-    ("clw_10k knobs", dict(pair_chunks=8, lab_i16=True)),
-    ("boruvka", dict(mst_algo="boruvka")),
-    ("per-rank telemetry", dict(telemetry_rounds=64, telemetry_per_rank=True)),
-    ("mesh2d", dict(backend="mesh2d")),
+    ("lvj_1k", "lvj_1k", {}),
+    ("dense", "lvj_1k", dict(mode="dense")),
+    ("mesh_frontier", "mesh_frontier", {}),
+    ("clw_10k knobs", "clw_10k", {}),
+    ("boruvka", "lvj_1k", dict(mst_algo="boruvka")),
+    ("per-rank telemetry", "lvj_1k", dict(telemetry_rounds=64, telemetry_per_rank=True)),
+    ("mesh2d", "lvj_1k", dict(backend="mesh2d")),
 )
 MESH_FIELDS = ("dist", "lab", "pred", "marked", "path_edge", "bridge_u", "bridge_v",
                "bridge_w", "bridge_valid", "total_distance", "num_edges", "iterations",
@@ -1890,9 +1910,10 @@ MESH_SCALE10 = {"bucket": (547.0, 17, 2550, 257061), "frontier": (547.0, 10, 224
 
 
 def mesh_config(name, **kw):
-    from repro_torch.solver import SolverConfig
+    from repro_torch.configs.steiner import solver_preset
 
-    return SolverConfig(**{**MESH_PRESET, **dict(MESH_RUNS)[name], **kw})
+    _, preset, knobs = next(run for run in MESH_RUNS if run[0] == name)
+    return solver_preset(preset).replace(mesh_shape=(1, 1), **{**knobs, **kw})
 
 
 def same_mesh(a, b, what, fields=MESH_FIELDS):
@@ -1964,7 +1985,7 @@ def phase10_mesh(dev, h, single_in, in_shard_dir=None):
     torch.cuda.reset_peak_memory_stats()
     boruvka_ref = smod.finish_pipeline(h.graph, ref.raw.state, ref.raw.stats, S, "boruvka")
     bucket_handle = None
-    for name, _ in MESH_RUNS:
+    for name, *_ in MESH_RUNS:
         cfg = mesh_config(name)
         hm, prep_s = timed(lambda: SteinerSolver(cfg, device=dev).prepare(h.graph))
         cold, cold_s = timed(hm.solve, seeds)
@@ -2026,7 +2047,7 @@ def phase10_mesh(dev, h, single_in, in_shard_dir=None):
     sd16 = select_seeds(n, src, dst, 64, strategy="uniform", seed=1000)
     graphs = {str(d): from_edges(src, dst, w, n, pad_to=8, device=d) for d in (dev, "cpu")}
     card = {}
-    for name, _ in MESH_RUNS:
+    for name, *_ in MESH_RUNS:
         cfg = mesh_config(name)
         res, secs = {}, {}
         for d in (dev, "cpu"):
@@ -2396,6 +2417,336 @@ def kernel_times(dev, ell, st, blocked_in, lanes_in, seg_in, tally):
     return res
 
 
+# ---- phase 11: the trainer (src/repro_torch/launch/train.py and the LM stack)
+
+H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak (data sheet, 700 W)
+TRAIN_B, TRAIN_S = 8, 64  # train.py's defaults
+LONG_S = 4096  # LM_SHAPES train_4k's sequence length (its global batch 256 cut to 1)
+# card vs CPU of the reduced configs (f32 variants): |card - cpu| <= atol +
+# rtol·|cpu|, atol a fraction of max|cpu| (tests/test_torch_lm.py's)
+LOSS_RTOL, LOGITS_ATOL, GRADS_ATOL = 1e-5, 5e-5, 2e-4
+# full-width decode vs forward at the same positions (the max over logits,
+# over max|forward|).  The reference's init draws wq and wk with fan_in =
+# heads (24 and 2), so attention scores have std ~400 and the softmax is a
+# near-hard max that rounding flips: on these weights (on an H100) the f32
+# decode sat 4.3 % of max|logits| from the f32 forward, and the bf16
+# forward 24 % from the f32 one.  So in f32 the weights are the same with
+# wq and wk scaled by QK_SCALE (scores of std ~2), and decode must equal
+# forward within DECODE_F32; in bf16, on the weights as they are, decode
+# must stay within DECODE_BF16 x the bf16 forward's distance from the f32
+# forward (the model's bf16 noise floor, measured in the same run) plus one
+# bf16 step
+QK_SCALE, DECODE_F32, DECODE_BF16 = 1 / 16, 1e-3, 2.0
+
+
+def model_flops(cfg, B, S):
+    """Model FLOPs of one train step: 6·P·T for the weights (P =
+    params_count()) plus 12·L·H·hd·S·T for the attention scores and values
+    (forward and backward, the causal half not subtracted), T = B·S; the
+    recomputed forward is not counted."""
+    T = B * S
+    return 6 * cfg.params_count() * T + 12 * cfg.n_layers * cfg.n_heads * cfg.hd * S * T
+
+
+def kernel_counts():
+    from repro_torch.kernels.minplus import minplus as kmod
+    from repro_torch.kernels.segmin import segmin as kseg
+
+    return {"minplus_call": kmod.minplus_call.launches,
+            "minplus_call (lanes)": kmod.minplus_call.lane_launches,
+            "minplus_blocked_call": kmod.minplus_blocked_call.launches,
+            "minplus_blocked_call (lanes)": kmod.minplus_blocked_call.lane_launches,
+            "pack_records": kmod.pack_records.launches,
+            "segmin_bucketed_call": kseg.segmin_bucketed_call.launches}
+
+
+def zero_kernel_counts():
+    from repro_torch.kernels.minplus import minplus as kmod
+    from repro_torch.kernels.segmin import segmin as kseg
+
+    kmod.minplus_call.launches = kmod.minplus_call.lane_launches = 0
+    kmod.minplus_blocked_call.launches = kmod.minplus_blocked_call.lane_launches = 0
+    kmod.pack_records.launches = kseg.segmin_bucketed_call.launches = 0
+
+
+def rel_err(a, b):
+    """max |a - b| over max |b|, both as f32."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def train_step_row(step, params, opt_state, tok, cfg, what):
+    """One timed train step: loss, seconds, tokens/s, peak memory, FLOPs share."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    (params, opt_state, loss), s = timed(step, params, opt_state, tok)
+    B, S = tok.shape
+    row = {"loss": float(loss), "s": s, "tokens_per_s": B * S / s,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "flops_share": model_flops(cfg, B, S) / s / H100_BF16_FLOPS}
+    if not math.isfinite(row["loss"]):
+        raise AssertionError(f"{what}: loss {row['loss']}")
+    log(f"phase 11: {what} ({B}, {S}): loss {row['loss']:.6f}, {s:.3f} s, "
+        f"{row['tokens_per_s']:.0f} tokens/s, peak {row['peak_gb']:.2f} GB, model FLOPs "
+        f"{row['flops_share']:.4f} of the bf16 peak")
+    return row
+
+
+def full_width_training(dev, cfg, rec):
+    """starcoder2-3b at full width and depth: init on the card, three steps
+    on one repeated batch (the loss falls at every step), three on the token
+    stream, a breakdown of one step (forward, backward with the recomputed
+    forward, the update, a profiler pass), one step at (1, LONG_S)."""
+    import torch
+
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import OptConfig, adamw_init, adamw_update
+
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, rec["init_s"] = timed(tf.init_params, cfg, gen)
+    opt_cfg = OptConfig(lr=1e-3)  # train()'s
+    opt_state = adamw_init(params, opt_cfg)
+    sync()
+    rec["state_gb"] = torch.cuda.memory_allocated() / 1e9
+    log(f"phase 11: {cfg.name} at full width: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads ({cfg.n_kv_heads} KV), head_dim {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, {cfg.dtype}, {cfg.params_count()} params; init {rec['init_s']:.3f}"
+        f" s; params + f32 moments {rec['state_gb']:.2f} GB; model FLOPs of a (B, S) step = "
+        f"6·P·B·S + 12·L·H·hd·S·B·S (P = params_count(); the attention's causal half not "
+        f"subtracted, the recomputed forward not counted), over {H100_BF16_FLOPS:.3g} FLOP/s")
+    step = tf.make_train_step(cfg, opt_cfg)
+    stream = TokenStream(cfg.vocab, TRAIN_B, TRAIN_S, seed=0)
+    tok = torch.from_numpy(stream.batch_at(0)).to(dev)
+    rec["repeated"] = [train_step_row(step, params, opt_state, tok, cfg,
+                                      f"repeated batch, step {i}") for i in range(3)]
+    losses = [r["loss"] for r in rec["repeated"]]
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"the loss on one repeated batch does not fall: {losses}")
+    rec["stream"] = [train_step_row(step, params, opt_state,
+                                    torch.from_numpy(stream.batch_at(i)).to(dev), cfg,
+                                    f"TokenStream step {i}") for i in range(1, 4)]
+    # where a step's time goes: the pieces of train_step, each timed alone
+    with torch.no_grad():
+        _, fwd_s = timed(tf.loss_fn, cfg, params, tok)
+    (_, grads), fb_s = timed(tf.loss_and_grads, cfg, params, tok, stacked=False)
+    _, upd_s = timed(adamw_update, params, grads, opt_state, opt_cfg)
+    del grads
+    step_s = rec["stream"][-1]["s"]
+    prof = device_profile(lambda: step(params, opt_state, tok), step_s)
+    rec["breakdown"] = {"forward_s": fwd_s, "forward_recompute_backward_s": fb_s,
+                        "backward_est_s": fb_s - 2 * fwd_s, "update_s": upd_s, "step_s": step_s,
+                        "device_ms": prof["device_ms"], "busy_share": prof["busy_share"],
+                        "top_device_ms": prof["top_device_ms"]}
+    log(f"phase 11: one ({TRAIN_B}, {TRAIN_S}) step {step_s:.3f} s: forward alone "
+        f"{fwd_s:.3f} s, forward + recomputed forward + backward {fb_s:.3f} s (backward ~"
+        f"{fb_s - 2 * fwd_s:.3f} s), AdamW update {upd_s:.3f} s; under the profiler device "
+        f"busy {prof['busy_share']:.3f} ({prof['device_ms']:.1f} device ms); top device time "
+        f"(ms): {json.dumps(prof['top_device_ms'])}")
+    long_tok = torch.from_numpy(TokenStream(cfg.vocab, 1, LONG_S, seed=0).batch_at(0)).to(dev)
+    rec["long"] = train_step_row(step, params, opt_state, long_tok, cfg,
+                                 f"one step at train_4k's sequence length, {LONG_S // 1024} KV "
+                                 f"chunks of 1024 under recompute")
+    del opt_state
+    return params
+
+
+def full_width_decode(dev, cfg, params, rec):
+    """make_decode_step with a (2, 64) cache over the first 8 tokens of a
+    prompt, one at a time, against forward's logits at the same positions:
+    in bf16 (the config's dtype) and on f32 copies of the same weights
+    (their wq and wk scaled by QK_SCALE)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+
+    prompt = torch.from_numpy(TokenStream(cfg.vocab, 2, 8, seed=1).batch_at(0)).to(dev)
+
+    def decode(c, p):
+        caches = tf.init_caches(c, 2, 64, device=dev)
+        step = tf.make_decode_step(c)
+        out = []
+        for i in range(prompt.shape[1]):
+            logits, caches = step(p, caches, prompt[:, i], i)
+            out.append(logits)
+        return torch.stack(out, 1)
+
+    with torch.no_grad():
+        fwd16 = tf.forward(cfg, params, prompt)
+    dec16, dec_s = timed(decode, cfg, params)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    with torch.no_grad():
+        fwd32 = tf.forward(c32, p32, prompt)
+        for name in ("wq", "wk"):
+            p32["dense"]["attn"][name].mul_(QK_SCALE)
+        fwd32s = tf.forward(c32, p32, prompt)
+    dec32s = decode(c32, p32)
+    del p32
+    rec["decode"] = {"s": dec_s, "tokens_per_s": prompt.numel() / dec_s,
+                     "f32_err": rel_err(dec32s, fwd32s), "bf16_err": rel_err(dec16, fwd16),
+                     "bf16_floor": rel_err(fwd16, fwd32),
+                     "argmax_agree_bf16": float((dec16.argmax(-1) == fwd16.argmax(-1))
+                                                .float().mean())}
+    d = rec["decode"]
+    log(f"phase 11: decode at full width, (2, 64) cache, 8 tokens one at a time in "
+        f"{dec_s:.3f} s; |decode - forward| / max|forward|: f32 (wq, wk x {QK_SCALE}) "
+        f"{d['f32_err']:.2e} (at most {DECODE_F32}); bf16 {d['bf16_err']:.4f} against the "
+        f"bf16 forward's {d['bf16_floor']:.4f} from the f32 forward (at most {DECODE_BF16}x "
+        f"+ 2^-7); bf16 argmax agrees on {d['argmax_agree_bf16']:.3f}")
+    if not (d["f32_err"] <= DECODE_F32
+            and d["bf16_err"] <= DECODE_BF16 * d["bf16_floor"] + 2.0 ** -7):
+        raise AssertionError(f"decode differs from forward: {d}")
+
+
+def train_crash_resume(dev, preset, rec):
+    """train() end to end: 24 steps with a checkpoint every 8, an injected
+    failure at step 17 and a relaunch, against an uninterrupted run
+    (tests/test_substrate.py's test, at examples/train_lm.py's preset,
+    batch, length and lr); checkpoints in a temporary directory."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.train import TrainConfig, train
+
+    base = dict(steps=24, batch=4, seq_len=128, ckpt_every=8, lr=3e-4, device=str(dev),
+                model=preset)
+    with tempfile.TemporaryDirectory() as d:
+        (_, _, ref), ref_s = timed(train, TrainConfig(ckpt_dir=f"{d}/ref", **base),
+                                   log=lambda *_: None)
+        try:
+            train(TrainConfig(ckpt_dir=f"{d}/crash", failure_at_step=17, **base),
+                  log=lambda *_: None)
+            raise AssertionError("train() ran past its injected failure")
+        except RuntimeError as e:
+            if "injected failure at step 17" not in str(e):
+                raise
+        logs = []
+        (_, _, resumed), resume_s = timed(train, TrainConfig(ckpt_dir=f"{d}/crash", **base),
+                                          log=logs.append)
+        ckpt_bytes = sum(f.stat().st_size for f in Path(d, "ref").rglob("state.npz"))
+        n_ckpts = len(CheckpointManager(f"{d}/ref").steps())
+    rec["train"] = {"params": preset.params_count(), "ref_s": ref_s, "resume_s": resume_s,
+                    "losses_ref": ref, "losses_resumed": resumed,
+                    "ckpt_gb": ckpt_bytes / n_ckpts / 1e9}
+    log(f"phase 11: train() at {preset.name} ({preset.params_count()} params), 24 steps of "
+        f"(4, 128): uninterrupted {ref_s:.2f} s, loss {ref[0]:.6f} -> {ref[-1]:.6f}; crashed at "
+        f"step 17 and relaunched ({logs[0]!r}) {resume_s:.2f} s, final loss {resumed[-1]:.6f}; "
+        f"a checkpoint {rec['train']['ckpt_gb']:.3f} GB")
+    if "resumed from checkpoint at step 15" not in logs[0] or len(resumed) != 8:
+        raise AssertionError(f"the relaunch did not resume at step 16: {logs[:1]}")
+    if not math.isclose(resumed[-1], ref[-1], rel_tol=1e-4):
+        raise AssertionError(f"resumed final loss {resumed[-1]} vs {ref[-1]}")
+
+
+def close(got, want, atol_frac, rtol, what):
+    import torch
+
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    tol = atol_frac * float(want.abs().max()) + rtol * want.abs()
+    if not bool(((got - want).abs() <= tol).all()):
+        raise AssertionError(f"{what}: card vs CPU off by {float((got - want).abs().max())}")
+    return rel_err(got, want)
+
+
+def reduced_card_vs_cpu(dev, rec):
+    """The five reduced LM configs (f32 variants) on the card against the
+    same weights and tokens on the CPU: one train step's loss and gradients,
+    two decode steps' logits, and one 8-bit AdamW step's moments."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.tree import tree_leaves, tree_map
+
+    rec["reduced"] = {}
+    for arch in ("starcoder2-3b", "qwen1.5-32b", "stablelm-12b", "granite-moe-1b-a400m",
+                 "deepseek-v3-671b"):
+        cfg = dataclasses.replace(get_arch(arch).reduced, dtype="float32")
+        cpu = tf.init_params(cfg, torch.Generator().manual_seed(0))
+        card = tree_map(lambda t: t.to(dev, copy=True), cpu)
+        tok = torch.from_numpy(TokenStream(cfg.vocab, 4, 32, seed=2).batch_at(0))
+        lc, gc = tf.loss_and_grads(cfg, cpu, tok)
+        ld, gd = tf.loss_and_grads(cfg, card, tok.to(dev))
+        if not math.isclose(float(ld), float(lc), rel_tol=LOSS_RTOL):
+            raise AssertionError(f"{arch}: loss {float(ld)} on the card, {float(lc)} on the CPU")
+        grad_err = max(close(a, b, GRADS_ATOL, 1e-5, f"{arch} grads")
+                       for a, b in zip(tree_leaves(gd), tree_leaves(gc)))
+        caches = [tf.init_caches(cfg, 2, 16, device=d) for d in ("cpu", dev)]
+        logit_err = 0.0
+        for i in range(2):
+            t = tok[:2, i].contiguous()
+            lc_i, caches[0] = tf.make_decode_step(cfg)(cpu, caches[0], t, i)
+            ld_i, caches[1] = tf.make_decode_step(cfg)(card, caches[1], t.to(dev), i)
+            logit_err = max(logit_err, close(ld_i, lc_i, LOGITS_ATOL, 1e-5, f"{arch} decode"))
+        q8 = OptConfig(lr=1e-3, quantized=True)
+        states = [adamw_init(p, q8) for p in (cpu, card)]
+        tf.make_train_step(cfg, q8)(cpu, states[0], tok)
+        tf.make_train_step(cfg, q8)(card, states[1], tok.to(dev))
+        # every m and v as stored (v through its square root): card and CPU
+        # within one quantization step of the block (a value on a rounding
+        # boundary) plus the gradients' tolerance
+        q8_steps = 0.0
+        for a, b in zip(tree_leaves(states[1]["mu"]), tree_leaves(states[0]["mu"])):
+            step = b.scale[:, None] / 127
+            xa = a.q.cpu().float().reshape(-1, 128) * a.scale.cpu()[:, None] / 127
+            xb = b.q.float().reshape(-1, 128) * step
+            off = (xa - xb).abs() - GRADS_ATOL * float(xb.abs().max())
+            q8_steps = max(q8_steps, float((off / step.clamp(min=1e-30)).max()))
+        if q8_steps > 1:
+            raise AssertionError(f"{arch}: 8-bit moments differ by {q8_steps} steps")
+        rec["reduced"][arch] = {"loss": float(lc), "grad_err": grad_err, "logit_err": logit_err,
+                                "q8_steps": q8_steps}
+        log(f"phase 11: {cfg.name} (f32) card vs CPU: loss {float(ld):.7f} / {float(lc):.7f}, "
+            f"grads {grad_err:.2e}, decode logits {logit_err:.2e} of max (atol {GRADS_ATOL} and "
+            f"{LOGITS_ATOL} of max, rtol 1e-5); 8-bit AdamW moments within "
+            f"{max(q8_steps, 0.0):.3f} of a quantization step")
+
+
+def phase11_trainer(dev, root):
+    """The trainer on the card: the full-width steps, decode, train()'s crash
+    and resume at the 100m preset, the reduced configs card vs CPU.  Returns
+    the record and the kernel launches counted while it ran (none expected:
+    the path reaches no pallas_call in the reference)."""
+    import importlib.util
+
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_lm", root / "examples" / "torch_train_lm.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    cfg = get_arch("starcoder2-3b").model
+    rec = {}
+    t_phase = time.perf_counter()
+    zero_kernel_counts()
+    params = full_width_training(dev, cfg, rec)
+    full_width_decode(dev, cfg, params, rec)
+    del params
+    torch.cuda.empty_cache()
+    train_crash_resume(dev, example.PRESETS["100m"], rec)
+    reduced_card_vs_cpu(dev, rec)
+    launches = kernel_counts()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 11: {rec['phase_s']:.1f} s; kernel launches on the trainer path "
+        f"{json.dumps(launches)}")
+    if any(launches.values()):
+        raise AssertionError(f"the trainer path launched {launches}")
+    return rec, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=23, help="RMAT scale of phases 6 and 7")
@@ -2497,13 +2848,20 @@ def main(argv=None) -> int:
     done("10b")
     times = kernel_times(dev, h.artifact("ell"), st, {"full": hb, "scale16": blocked16},
                          lanes_in, seg_in, tally)
-    done("11")
+    done("kernel times")
     log(f"kernel times: {json.dumps(times)}")
     log("tolerance: exact (every output of every kernel equals the plain version's; "
         + ", ".join(f"{k}: {t.cases} cases, {t.mismatches} mismatches"
                     for k, t in tally.items()) + ")")
+    # ---- phase 11 (the trainer at full width), with the Steiner phases' state freed
+    del h, st, hb, blocked16, lanes_in, seg_in
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 11: {torch.cuda.memory_allocated() / 1e9:.2f} GB held from earlier phases")
+    trainer_rec, trainer_launches = phase11_trainer(dev, root)
+    done("11")
 
-    # ---- phase 11
+    # ---- phase 12
     by_path = {"minplus_call (pallas, phase 6)": rec["launches_per_solve"] * 4,
                "minplus_call (lanes, phase 7)": lane_launches,
                "minplus_blocked_call (pallas, phase 8)": blocked_launches,
@@ -2512,7 +2870,8 @@ def main(argv=None) -> int:
                **{f"{k[:-1]}, phase 9)": v for k, v in sched_launches.items()},
                **{f"{k[:-1]}, phase 9b)": v for k, v in store_launches.items()},
                "minplus_call (traced pallas, phase 10b)": obs_launches["single"],
-               "minplus_call (lanes, traced server, phase 10b)": obs_launches["lanes"]}
+               "minplus_call (lanes, traced server, phase 10b)": obs_launches["lanes"],
+               "every kernel (trainer, phase 11)": sum(trainer_launches.values())}
     log(f"launches by path: {json.dumps(by_path)}")
     launches = {"minplus_call": rec["launches_per_solve"] * 4
                 + sched_launches["minplus_call (pallas_frontier)"]
@@ -2555,11 +2914,12 @@ def main(argv=None) -> int:
              "full_width": rec, "serving": serve_rec, "blocked_full_width": blocked_rec,
              "schedules_full_width": sched_rec, "scale16_lane_launches": lanes16,
              "scale16_store_launches": store16, "store_full_width": store_rec,
-             "mesh": mesh_rec, "obs": obs_rec, "launches_by_path": by_path,
+             "mesh": mesh_rec, "obs": obs_rec, "trainer": trainer_rec,
+             "launches_by_path": by_path,
              "kernel_times": times, "kernels": kernels, "seconds": total_s}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
-    # ---- phase 12
+    # ---- phase 13
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,10 @@
 """Turns the JAX package's arrays, given as numpy, into this package's objects.
 
 The data takes the place of weights in this system: these functions let the
-two packages compute on the same graph, ELL view and Voronoi state.  Pass
-``np.asarray(x)`` of the JAX arrays; nothing here imports JAX.
+two packages compute on the same graph, ELL view and Voronoi state, and the
+LM family on the same weights and optimizer state (with their inverses, for
+comparisons).  Pass ``np.asarray(x)`` of the JAX arrays; nothing here
+imports JAX.
 """
 
 from __future__ import annotations
@@ -45,3 +47,80 @@ def state_from_numpy(dist, lab, pred, *, device="cuda") -> VoronoiState:
         lab=_t(lab, np.int32, device),
         pred=_t(pred, np.int32, device),
     )
+
+
+# ---- the LM family: parameter and optimizer-state trees -------------------------
+
+
+def tensor_from_numpy(a, *, device="cuda") -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype; bf16 (ml_dtypes, numpy
+    kind 'V') travels as its 16 bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.kind == "V":
+        if a.dtype.name != "bfloat16":
+            raise TypeError(f"no torch dtype for {a.dtype}")
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16 as f32 (exact), for comparisons."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def lm_params_from_numpy(tree, cfg, *, device="cuda"):
+    """The reference's LM parameter tree (``init_params``' nested dict, its
+    leaves as numpy) as this package's, each leaf checked against
+    ``param_defs(cfg)``."""
+    from repro_torch.models.transformer import _nest, param_defs
+
+    flat = {}
+    for name, (shape, dtype) in param_defs(cfg).items():
+        node = tree
+        for part in name.split("."):
+            node = node[part]
+        t = tensor_from_numpy(node, device=device)
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: {t.dtype}{tuple(t.shape)}, the config wants "
+                             f"{dtype}{shape}")
+        flat[name] = t
+    return _nest(flat)
+
+
+def lm_params_to_numpy(params):
+    """The inverse of :func:`lm_params_from_numpy` (bf16 leaves as f32)."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(tensor_to_numpy, params)
+
+
+def opt_state_from_numpy(state, *, device="cuda"):
+    """The reference's AdamW state (``{"mu": ..., "count": ...}``, leaves as
+    numpy; a ``Q8State``'s fields as numpy) as this package's."""
+    from repro_torch.optim.adamw import Q8State
+    from repro_torch.tree import tree_map
+
+    def leaf(x):
+        if hasattr(x, "scale"):
+            return Q8State(q=tensor_from_numpy(x.q, device=device),
+                           scale=tensor_from_numpy(x.scale, device=device),
+                           shape=tuple(x.shape))
+        return tensor_from_numpy(x, device=device)
+
+    return tree_map(leaf, state)
+
+
+def opt_state_to_numpy(state):
+    """The inverse of :func:`opt_state_from_numpy`: numpy leaves, a
+    ``Q8State`` with numpy fields."""
+    from repro_torch.optim.adamw import Q8State
+    from repro_torch.tree import tree_map
+
+    def leaf(x):
+        if isinstance(x, Q8State):
+            return Q8State(q=tensor_to_numpy(x.q), scale=tensor_to_numpy(x.scale),
+                           shape=x.shape)
+        return tensor_to_numpy(x)
+
+    return tree_map(leaf, state)

@@ -798,3 +798,110 @@ def test_compacted_store_on_card_solves_like_overlay(cuda, tmp_path):
     cpu = SteinerSolver(cfg, device="cpu").prepare(open_store(cpath)).solve(seeds)
     _same_solve(overlay, compacted)
     _same_solve(compacted, cpu)
+
+
+# ---- the LM stack of the trainer on the card (plain PyTorch: no kernel of
+# the package runs on this path)
+
+LM_CARD_ARCHS = ("starcoder2-3b", "deepseek-v3-671b")  # dense; MoE with MLA
+
+
+def _lm_on_both(cuda, arch):
+    """A reduced LM config's f32 variant, the same seeded weights on the CPU
+    and on the card, and a token batch."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_arch(arch).reduced, dtype="float32")
+    cpu = tf.init_params(cfg, torch.Generator().manual_seed(0))
+    card = tree_map(lambda t: t.to(cuda, copy=True), cpu)
+    tok = torch.from_numpy(TokenStream(cfg.vocab, 4, 32, seed=2).batch_at(0))
+    return cfg, cpu, card, tok
+
+
+def _close(got, want, atol_frac):
+    """|got - want| <= atol_frac·max|want| + 1e-5·|want| (f32 rounding of two
+    devices' summation orders; the CPU parity tests' tolerances)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    tol = atol_frac * float(want.abs().max()) + 1e-5 * want.abs()
+    assert bool(((got - want).abs() <= tol).all()), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("arch", LM_CARD_ARCHS)
+def test_lm_train_step_on_card_matches_cpu(cuda, arch):
+    """One AdamW train step of a reduced config (f32) on the card and on the
+    CPU: the same loss, gradients and first moments (m = 0.1·g after one
+    step); the weights after the step are not compared elementwise (a
+    near-zero gradient's sign decides its ±lr move)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.tree import tree_leaves
+
+    cfg, cpu, card, tok = _lm_on_both(cuda, arch)
+    lc, gc = tf.loss_and_grads(cfg, cpu, tok)
+    ld, gd = tf.loss_and_grads(cfg, card, tok.to(cuda))
+    assert gd["embed"].device.type == cuda.type
+    np.testing.assert_allclose(float(ld), float(lc), rtol=1e-5)
+    for a, b in zip(tree_leaves(gd), tree_leaves(gc)):
+        _close(a, b, 2e-4)
+    opt = OptConfig(lr=1e-3)
+    sc, sd = adamw_init(cpu, opt), adamw_init(card, opt)
+    _, sc, lc = tf.make_train_step(cfg, opt)(cpu, sc, tok)
+    _, sd, ld = tf.make_train_step(cfg, opt)(card, sd, tok.to(cuda))
+    np.testing.assert_allclose(float(ld), float(lc), rtol=1e-5)
+    for a, b in zip(tree_leaves(sd["mu"]), tree_leaves(sc["mu"])):
+        _close(a, b, 2e-4)
+
+
+@pytest.mark.parametrize("arch", LM_CARD_ARCHS)
+def test_lm_decode_on_card_matches_cpu(cuda, arch):
+    from repro_torch.models import transformer as tf
+
+    cfg, cpu, card, tok = _lm_on_both(cuda, arch)
+    caches = [tf.init_caches(cfg, 2, 16, device=d) for d in ("cpu", cuda)]
+    step = tf.make_decode_step(cfg)
+    for i in range(2):
+        t = tok[:2, i].contiguous()
+        lc, caches[0] = step(cpu, caches[0], t, i)
+        ld, caches[1] = step(card, caches[1], t.to(cuda), i)
+        assert ld.device.type == cuda.type and ld.shape == (2, cfg.vocab_padded)
+        _close(ld, lc, 5e-5)
+
+
+def test_lm_checkpoint_round_trip_from_the_card(cuda, tmp_path):
+    """Params (bf16) and AdamW state of a reduced config saved from the card
+    restore bit for bit, onto the card and onto the CPU."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_arch("granite-moe-1b-a400m").reduced
+    params = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(3))
+    state = {"params": params, "opt": adamw_init(params, OptConfig(quantized=True))}
+    tok = torch.randint(0, cfg.vocab, (2, 16), device=cuda)
+    tf.make_train_step(cfg, OptConfig(quantized=True))(params, state["opt"], tok)
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(0, state, blocking=True)
+    for device in (None, "cpu"):
+        template = tree_map(torch.zeros_like, state["params"])
+        step, back = mgr.restore({"params": template, "opt": adamw_init(
+            template, OptConfig(quantized=True))}, device=device)
+        assert step == 0
+        want = [t for leaf in tree_leaves(state) for t in _q8_fields(leaf)]
+        got = [t for leaf in tree_leaves(back) for t in _q8_fields(leaf)]
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            assert a.device.type == (cuda.type if device is None else "cpu")
+            assert torch.equal(a.cpu(), b.cpu())
+
+
+def _q8_fields(leaf):
+    """A tensor, or an 8-bit state's payload and scales."""
+    return [leaf.q, leaf.scale] if hasattr(leaf, "scale") else [leaf]
