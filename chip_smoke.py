@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # full width: RMAT scale 23, 1024 seeds
     python3 chip_smoke.py --scale 18 # a shorter rehearsal of phases 6 to 9
+    python3 chip_smoke.py --scale 18 --only-models  # phases 1, 6 and 12 alone
 
 Phases (any failure raises and the script exits non-zero, printing no
 result):
@@ -38,8 +39,8 @@ result):
    with src_block=4096, a layout built each round);
 5. RMAT scale 16, serving: one Zipf query stream through
    SteinerServer(g, ServeConfig(mode="pallas", buckets=(8, 16, 32),
-   max_batch=8)) and through SteinerServer(g, ServeConfig()) (mode
-   "bucket") on the card and on the CPU, with identical results and
+   max_batch=8)) and its first 12 queries through SteinerServer(g,
+   ServeConfig()) (mode "bucket") on the card and on the CPU, with identical results and
    non-latency counters; then one (8, 16) seed batch through the batch
    backend with src_block=4096, in modes "dense" and "bucket", and with
    pallas_frontier, card vs CPU bit for bit (blocked lane launches =
@@ -151,11 +152,27 @@ result):
    1e-4); the five reduced LM configs (f32) card against CPU (a train
    step's loss and gradients, two decode steps, an 8-bit AdamW step); no
    kernel launched;
-12. a line of launches by path, then one JSON line with each kernel's
+12. the GNN family and MIND (repro_torch.models.gnn, models.recsys and
+   their data) at full width, f32 as configured, each with its steps'
+   seconds, losses (falling over three AdamW steps on one batch) and peak
+   memory: 12a graphsage-reddit x minibatch_lg on an RMAT graph at Reddit's
+   size (scale 18, edge factor 437; build_csr on the host, 1024 batch
+   vertices with fanout (15, 10) through sample_neighbors, 602-wide
+   features; the graph built on the host in a worker process while
+   phase 11 runs); 12b gatedgcn and graphcast x full_graph_sm; 12c schnet x
+   molecule (the batched path); 12d graphsage-reddit x ogb_products on the
+   full graph; 12e examples/torch_gnn_steiner_sampling.py's loop at full
+   width on phase 6's graph (8 steps of 12 seeds, each subgraph from phase
+   6's prepared mode="pallas" handle, minplus launches = rounds, the first
+   tree = steiner_tree's bit for bit); 12f mind's train_batch (B 65,536),
+   serve_p99 (p50 and p99 over 120 calls), serve_bulk (B 262,144) and
+   retrieval_cand (10^6 candidates), data from BehaviorStream; 12g the
+   reduced configs card vs CPU; no kernel launched by a model;
+13. a line of launches by path, then one JSON line with each kernel's
    launches on its paths (the top-K ones of phase 9 included), its error and
    mismatches against the plain version, and its time beside its bound and
    the plain version's time;
-13. last line: {"ok": true, "device": {...}}.
+14. last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one card.
 """
@@ -776,13 +793,16 @@ def phase5_server_card_vs_cpu(dev):
     pool = build_query_pool(n, rng, 10, buckets)
     queries = [pool[i] for i in zipf_stream(rng, 10, 24, 1.1)]
     launches = {}
-    for cfg in (ServeConfig(mode="pallas", buckets=buckets, max_batch=8), ServeConfig()):
+    # the default server (mode "bucket") serves the first 12 queries: on the
+    # CPU it solves lane by lane, ~42 s for all 24
+    for cfg, stream in ((ServeConfig(mode="pallas", buckets=buckets, max_batch=8), queries),
+                        (ServeConfig(), queries[:12])):
         runs = {}
         for d in (dev, "cpu"):
             srv = SteinerServer(graphs[str(d)], cfg, device=d)
             kmod.minplus_call.launches = kmod.minplus_call.lane_launches = 0
             kmod.minplus_blocked_call.launches = 0
-            results, secs = serve_stream(srv, queries, 8)
+            results, secs = serve_stream(srv, stream, 8)
             if d == dev:
                 got = (kmod.minplus_call.lane_launches, kmod.minplus_call.launches,
                        kmod.minplus_blocked_call.launches)
@@ -799,7 +819,7 @@ def phase5_server_card_vs_cpu(dev):
             launches["minplus_call (lanes)"] = got[0]
         elif got != (0, 0, 0):
             raise AssertionError(f"the mode={cfg.mode} server launched kernels: {got}")
-        log(f"phase 5: scale 16 server mode={cfg.mode}, {len(queries)} queries: card and CPU "
+        log(f"phase 5: scale 16 server mode={cfg.mode}, {len(stream)} queries: card and CPU "
             f"identical; batches {sg['batches_per_bucket']}, hits {sg['cache_hits']}; lane "
             f"launches {got[0]}; card {tg:.3f} s, cpu {tc:.3f} s")
 
@@ -2747,6 +2767,515 @@ def phase11_trainer(dev, root):
     return rec, launches
 
 
+# ---- phase 12: the GNN family and the MIND recommender (src/repro_torch/models/gnn.py,
+# models/recsys.py, data/graphs.py sample_neighbors, data/recsys.py)
+
+GNN_LR, MIND_LR = 1e-3, 1e-2  # tests/test_models_smoke.py's
+REDDIT_SCALE, REDDIT_EF = 18, 437  # RMAT at Reddit's size: 2^18 vertices, ~114.6M edges
+# card vs CPU of the reduced configs (f32): |card - cpu| <= atol_frac·max|cpu| +
+# 1e-5·|cpu| (tests/test_torch_gnn.py's and test_torch_recsys.py's); the card's
+# index_add sums a row in atomic order
+MODEL_FWD_ATOL, MODEL_GRAD_ATOL = 1e-5, 2e-4
+GNN_CELLS = (("graphsage-reddit", "gnn_full"), ("graphsage-reddit", "gnn_sampled"),
+             ("gatedgcn", "gnn_full"), ("schnet", "gnn_full"), ("schnet", "gnn_batched"),
+             ("graphcast", "gnn_full"))
+
+
+def gnn_batch(cfg, shape, gen, dev):
+    """Inputs of a GNN cell drawn on ``dev`` from ``gen``, at effective_graph's
+    (N, E, F): node features, random (E, 2) edges, labels or targets (the
+    reference's smoke batches at full size; a molecule batch shares one edge
+    template)."""
+    import torch
+
+    from repro_torch.models import gnn
+
+    N, E, F = gnn.effective_graph(shape)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    def randint(hi, *s):
+        return torch.randint(0, hi, s, generator=gen, device=dev, dtype=torch.int32)
+
+    if shape.kind == "gnn_sampled":
+        B, (f1, f2) = shape.batch_nodes, shape.fanout
+        return {"feats": (randn(B, F), randn(B * f1, F), randn(B * f1 * f2, F)),
+                "labels": randint(cfg.n_classes, B)}
+    if shape.kind == "gnn_batched":
+        G, n1, e1 = shape.graph_batch, shape.n_nodes, shape.n_edges
+        return {"z": randn(G, n1, F), "pos": randn(G, n1, 3), "edges_t": randint(n1, e1, 2),
+                "energy": randn(G)}
+    if cfg.kind == "schnet":
+        return {"x": randn(N, F), "pos": randn(N, 3), "edges": randint(N, E, 2),
+                "energy_sum": torch.ones((), device=dev)}
+    if cfg.kind == "graphcast":
+        nm = N // 4 + 1
+        return {"x": randn(N, F),
+                "g2m": torch.stack([randint(N, E), randint(nm, E)], 1),
+                "mesh_e": randint(nm, min(E, 8 * nm), 2),
+                "m2g": torch.stack([randint(nm, E), randint(N, E)], 1),
+                "target": randn(N, cfg.n_vars)}
+    batch = {"x": randn(N, F), "edges": randint(N, E, 2), "labels": randint(cfg.n_classes, N)}
+    if cfg.kind == "gatedgcn":
+        batch["ew"] = torch.rand(E, generator=gen, device=dev)
+    return batch
+
+
+def model_steps(step, params, opt_state, batch, what, n=3):
+    """``n`` timed steps on one repeated batch: loss, seconds and peak memory
+    (``max_memory_allocated`` after a reset) of each; the loss must fall."""
+    import torch
+
+    rows = []
+    for i in range(n):
+        torch.cuda.reset_peak_memory_stats()
+        (params, opt_state, loss), s = timed(step, params, opt_state, batch)
+        rows.append({"loss": float(loss), "s": s,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        log(f"phase 12: {what}, step {i}: loss {rows[-1]['loss']:.6f}, {s:.3f} s, peak "
+            f"{rows[-1]['peak_gb']:.2f} GB")
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: the loss does not fall over {n} steps: {losses}")
+    return rows
+
+
+def gnn_cell(dev, arch, shape, batch_fn, what):
+    """A GNN config at full width (f32, as configured) on one cell: init on
+    the card from a seed, three AdamW steps on one batch."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import gnn
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_arch(arch).model
+    gen = torch.Generator(device=dev).manual_seed(0)
+    N, E, F = gnn.effective_graph(shape)
+    params = gnn.init_params(cfg, F, gen)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    batch, data_s = timed(batch_fn, cfg, shape, gen)
+    opt = OptConfig(lr=GNN_LR)
+    log(f"phase 12: {what}: {cfg.name} ({cfg.n_layers} layers, d {cfg.d_hidden}, "
+        f"{n_params} params, {cfg.dtype}) on {shape.name} (N {N}, E {E}, F {F}); inputs on "
+        f"the card {data_s:.3f} s")
+    rows = model_steps(gnn.make_train_step(cfg, shape, opt), params, adamw_init(params, opt),
+                       batch, what)
+    return {"arch": arch, "shape": shape.name, "N": N, "E": E, "F": F, "params": n_params,
+            "data_s": data_s, "steps": rows}
+
+
+def reddit_graph_job(out_dir):
+    """Phase 12a's host graph, built in a worker process while phase 11
+    runs on the card: RMAT at Reddit's size and its symmetrized CSR from
+    build_csr, saved in ``out_dir`` with the seconds of each."""
+    import numpy as np
+
+    from repro_torch.data.graphs import build_csr, rmat_edges
+
+    t0 = time.perf_counter()
+    src, dst, _, n = rmat_edges(REDDIT_SCALE, REDDIT_EF, seed=5)
+    rmat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    indptr, indices = build_csr(n, src, dst)
+    csr_s = time.perf_counter() - t0
+    np.save(Path(out_dir, "indptr.npy"), indptr)
+    np.save(Path(out_dir, "indices.npy"), indices)
+    Path(out_dir, "graph.json").write_text(json.dumps(
+        {"n": n, "m": len(src), "rmat_s": rmat_s, "csr_s": csr_s}))
+
+
+class HostJob:
+    """A function run in a spawned process (stopped on exit, finished or
+    not), its output in a temporary directory."""
+
+    def __init__(self, fn):
+        import multiprocessing
+        import tempfile
+
+        self.dir = tempfile.TemporaryDirectory()
+        self.proc = multiprocessing.get_context("spawn").Process(target=fn, args=(self.dir.name,))
+        self.proc.start()
+        self.t0 = time.perf_counter()
+
+    def wait(self):
+        """The output directory, once the process has exited 0; and the
+        seconds waited here."""
+        t0 = time.perf_counter()
+        self.proc.join()
+        if self.proc.exitcode != 0:
+            raise RuntimeError(f"host job exited {self.proc.exitcode}")
+        return Path(self.dir.name), time.perf_counter() - t0
+
+    def stop(self):
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join()
+        self.dir.cleanup()
+
+
+def phase12a_sage_sampled(dev, graph_job):
+    """graphsage-reddit x minibatch_lg: an RMAT graph at Reddit's size, its
+    symmetrized CSR from build_csr (``graph_job``), 1024 batch vertices with
+    fanout (15, 10) through sample_neighbors, 602-wide features gathered
+    from a table on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.graphs import sample_neighbors
+
+    shape = next(s for s in get_arch("graphsage-reddit").shapes if s.name == "minibatch_lg")
+    out, wait_s = graph_job.wait()
+    g = json.loads(Path(out, "graph.json").read_text())
+    indptr, indices = np.load(Path(out, "indptr.npy")), np.load(Path(out, "indices.npy"))
+    n = g["n"]
+    log(f"phase 12a: RMAT scale {REDDIT_SCALE}, edge factor {REDDIT_EF}: {n} vertices, "
+        f"{g['m']} edges (Reddit: {shape.n_nodes}, {shape.n_edges}) in {g['rmat_s']:.1f} s; "
+        f"build_csr {g['csr_s']:.1f} s ({len(indices)} entries, "
+        f"{(indptr.nbytes + indices.nbytes) / 1e9:.2f} GB of host CSR), both in a worker "
+        f"process started ahead; waited for {wait_s:.1f} s here")
+    B, (f1, f2) = shape.batch_nodes, shape.fanout
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    batch_v = rng.choice(n, size=B, replace=False).astype(np.int32)
+    hop1 = sample_neighbors(indptr, indices, batch_v, f1, rng).reshape(-1)
+    hop2 = sample_neighbors(indptr, indices, hop1, f2, rng).reshape(-1)
+    sample_s = time.perf_counter() - t0
+    del indptr, indices
+
+    def batch_fn(cfg, shape, gen):
+        table = torch.randn((n, shape.d_feat), generator=gen, device=dev)
+        labels = torch.randint(0, cfg.n_classes, (n,), generator=gen, device=dev)
+        ids = [torch.from_numpy(v).to(dev).long() for v in (batch_v, hop1, hop2)]
+        return {"feats": tuple(table.index_select(0, i) for i in ids), "labels": labels[ids[0]]}
+
+    rec = gnn_cell(dev, "graphsage-reddit", shape, batch_fn,
+                   f"12a graphsage-reddit x minibatch_lg (fanout ({f1}, {f2}))")
+    rec.update(graph_n=n, graph_m=g["m"], rmat_s=g["rmat_s"], csr_s=g["csr_s"],
+               wait_s=wait_s, sample_s=sample_s, feat_rows=B * (1 + f1 + f1 * f2))
+    log(f"phase 12a: sampling {sample_s:.3f} s on the host ({B} + {len(hop1)} + {len(hop2)} "
+        f"= {rec['feat_rows']} feature rows, {rec['feat_rows'] * shape.d_feat * 4 / 1e9:.2f} "
+        f"GB)")
+    return rec
+
+
+def phase12_full_graph_sm(dev):
+    """gatedgcn and graphcast x full_graph_sm (N 3072, E 10752, F 1433)."""
+    from repro_torch.configs import get_arch
+
+    out = {}
+    for arch in ("gatedgcn", "graphcast"):
+        shape = next(s for s in get_arch(arch).shapes if s.name == "full_graph_sm")
+        out[arch] = gnn_cell(dev, arch, shape,
+                             lambda c, s, g: gnn_batch(c, s, g, dev), f"12b {arch} x full_graph_sm")
+    return out
+
+
+def phase12c_schnet(dev):
+    """schnet x molecule: 128 molecules of 30 atoms, one 64-edge template,
+    through the batched path (the reference's vmap)."""
+    from repro_torch.configs import get_arch
+
+    shape = next(s for s in get_arch("schnet").shapes if s.name == "molecule")
+    return gnn_cell(dev, "schnet", shape, lambda c, s, g: gnn_batch(c, s, g, dev),
+                    "12c schnet x molecule (G 128, batched)")
+
+
+def phase12d_ogb_products(dev):
+    """graphsage-reddit x ogb_products on the full graph."""
+    from repro_torch.configs import get_arch
+
+    shape = next(s for s in get_arch("graphsage-reddit").shapes if s.name == "ogb_products")
+    return gnn_cell(dev, "graphsage-reddit", shape, lambda c, s, g: gnn_batch(c, s, g, dev),
+                    "12d graphsage-reddit x ogb_products (full graph)")
+
+
+def phase12e_steiner_sampled(dev, h, root, steps=8, n_seeds=12):
+    """examples/torch_gnn_steiner_sampling.py's loop at full width on phase
+    6's graph: graphsage-reddit (16 input features), 8 steps of 12 random
+    seeds, each subgraph from phase 6's prepared mode="pallas" handle (the
+    min-plus kernel, launches = rounds); the first tree = steiner_tree's
+    (mode "bucket") bit for bit."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.steiner import steiner_tree
+    from repro_torch.models import gnn
+    from repro_torch.optim import OptConfig
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_gnn_steiner_sampling", root / "examples" / "torch_gnn_steiner_sampling.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    g, n = h.graph, h.graph.n
+    one_way = int(torch.isfinite(g.w).sum()) // 2  # from_edges: [src, dst] then padding
+    src, dst = g.src[:one_way], g.dst[:one_way]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feats = torch.randn((n, 16), generator=gen, device=dev)
+    labels = (torch.arange(n, device=dev) * 2654435761 % 5).to(torch.int32)
+    cfg = get_arch("graphsage-reddit").model
+    params = gnn.init_params(cfg, 16, gen)
+    outs, peaks, lines = [], [], []
+
+    def solve(seeds):
+        out = h.solve(seeds)
+        outs.append(out)
+        return out.raw
+
+    def on_step(msg):
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+        lines.append(msg)
+
+    zero_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    records = example.train_on_steiner_subgraphs(
+        g, src, dst, n, feats, labels, cfg, params, OptConfig(lr=1e-2),
+        np.random.default_rng(0), steps=steps, n_seeds=n_seeds, solve=solve, log=on_step)
+    sync()
+    loop_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    rounds = sum(o.telemetry.iterations for o in outs)
+    if (launches["minplus_call"], launches["pack_records"]) != (rounds, rounds) or any(
+            v for k, v in launches.items() if k not in ("minplus_call", "pack_records")):
+        raise AssertionError(f"the Steiner sampler launched {launches} for {rounds} rounds")
+    for line, peak, r in zip(lines, peaks, records):
+        log(f"phase 12e: {line}; {r['s']:.3f} s, peak {peak:.2f} GB")
+    ref = steiner_tree(g, torch.from_numpy(records[0]["seeds"]).to(dev))
+    same_fixpoint(outs[0].raw, ref, "the first Steiner subgraph's solve vs steiner_tree (bucket)")
+    losses = [r["loss"] for r in records]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"12e: the loss does not fall: {losses}")
+    log(f"phase 12e: {steps} steps in {loop_s:.3f} s; {rounds} rounds, minplus_call launches "
+        f"{launches['minplus_call']} (= rounds); the first tree = steiner_tree's (bucket) bit "
+        f"for bit (state, pair table, MST, tree); loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return {"loop_s": loop_s, "rounds": rounds, "launches": launches["minplus_call"],
+            "steps": [{"V": len(r["verts"]), "E": len(r["edges"]), "D": r["D"],
+                       "loss": r["loss"], "s": r["s"], "peak_gb": p}
+                      for r, p in zip(records, peaks)]}
+
+
+def behavior_batch(n_items, hist_len, batch, seed, step):
+    """One BehaviorStream batch (a worker process's task)."""
+    from repro_torch.data.recsys import BehaviorStream
+
+    return BehaviorStream(n_items, hist_len, batch, seed=seed).batch_at(step)
+
+
+def percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(math.ceil(q / 100 * len(xs))) - 1)]
+
+
+def phase12f_mind(dev):
+    """mind at full width (2^21 items x 64, 4 interests, 3 routing
+    iterations, history 50) on its four cells, data from BehaviorStream
+    (built in worker processes: a batch is a Python loop over its rows)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import recsys
+    from repro_torch.optim import OptConfig, adamw_init
+
+    cfg = get_arch("mind").model
+    shapes = {s.name: s for s in get_arch("mind").shapes}
+    train_b, bulk_b = shapes["train_batch"].batch, shapes["serve_bulk"].batch
+    parts = 4  # serve_bulk's 262,144 rows as four stream batches
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=parts + 1,
+                             mp_context=multiprocessing.get_context("spawn")) as ex:
+        jobs = [ex.submit(behavior_batch, cfg.n_items, cfg.hist_len, train_b, 0, 0)] + [
+            ex.submit(behavior_batch, cfg.n_items, cfg.hist_len, bulk_b // parts, 2, i)
+            for i in range(parts)]
+        train_np = jobs[0].result()
+        bulk_np = [j.result() for j in jobs[1:]]
+    data_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+
+    def on_card(b):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in b.items()}
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = recsys.init_params(cfg, gen)
+    rec = {"data_s": data_s}
+    log(f"phase 12f: {cfg.name}: {cfg.n_items} items x {cfg.embed_dim}, {cfg.n_interests} "
+        f"interests, {cfg.capsule_iters} routing iterations, history {cfg.hist_len}, "
+        f"{cfg.dtype}; BehaviorStream batches ({train_b} + {parts} x {bulk_b // parts} rows) "
+        f"in {data_s:.1f} s on {parts + 1} worker processes")
+    # train_batch: three steps on one batch (the in-batch logits are (B, B) f32)
+    opt = OptConfig(lr=MIND_LR)
+    step = recsys.make_step(cfg, shapes["train_batch"], opt)
+    rec["train_batch"] = model_steps(step, params, adamw_init(params, opt), on_card(train_np),
+                                     f"12f mind x train_batch (B {train_b})")
+    # serve_p99: B 512, 256 candidates a request, 120 calls
+    serve = recsys.make_step(cfg, shapes["serve_p99"])
+    sb = on_card({k: v[:shapes["serve_p99"].batch] for k, v in train_np.items()
+                  if k != "target_id"})
+    B = shapes["serve_p99"].batch
+    sb["cand_ids"] = torch.from_numpy(rng.integers(0, cfg.n_items, (B, 256)).astype(np.int32)
+                                      ).to(dev)
+    times = [timed(serve, params, sb)[1] for _ in range(121)][1:]
+    scores = serve(params, sb)
+    rec["serve_p99"] = {"B": B, "calls": len(times), "p50_ms": percentile(times, 50) * 1e3,
+                        "p99_ms": percentile(times, 99) * 1e3}
+    if tuple(scores.shape) != (B, 256) or not bool(torch.isfinite(scores).all()):
+        raise AssertionError(f"serve_p99 scores {tuple(scores.shape)}")
+    log(f"phase 12f: mind x serve_p99 (B {B}, 256 candidates): {len(times)} calls, p50 "
+        f"{rec['serve_p99']['p50_ms']:.3f} ms, p99 {rec['serve_p99']['p99_ms']:.3f} ms")
+    # serve_bulk: B 262,144 with 256 candidates ((B, 256, 64) f32 gathered)
+    bulk = on_card({k: np.concatenate([b[k] for b in bulk_np]) for k in ("hist_ids",
+                                                                          "hist_mask")})
+    bulk["cand_ids"] = torch.randint(0, cfg.n_items, (bulk_b, 256), generator=gen, device=dev,
+                                     dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    scores, s = timed(serve, params, bulk)
+    rec["serve_bulk"] = {"B": bulk_b, "s": s, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    scores2, s2 = timed(serve, params, bulk)
+    rec["serve_bulk"]["s_warm"] = s2
+    if tuple(scores.shape) != (bulk_b, 256) or not bool(torch.isfinite(scores).all()):
+        raise AssertionError(f"serve_bulk scores {tuple(scores.shape)}")
+    del scores, scores2, bulk
+    log(f"phase 12f: mind x serve_bulk (B {bulk_b}, 256 candidates): {s:.3f} s, again "
+        f"{s2:.3f} s, peak {rec['serve_bulk']['peak_gb']:.2f} GB")
+    # retrieval_cand: one query against 1,000,000 candidates
+    n_cand = shapes["retrieval_cand"].n_candidates
+    rb = {"hist_ids": sb["hist_ids"][:1], "hist_mask": sb["hist_mask"][:1],
+          "cand_ids": torch.randint(0, cfg.n_items, (n_cand,), generator=gen, device=dev,
+                                    dtype=torch.int32)}
+    retrieve = recsys.make_step(cfg, shapes["retrieval_cand"])
+    times = [timed(retrieve, params, rb)[1] for _ in range(11)][1:]
+    rs = retrieve(params, rb)
+    if tuple(rs.shape) != (n_cand,) or not bool(torch.isfinite(rs).all()):
+        raise AssertionError(f"retrieval scores {tuple(rs.shape)}")
+    rec["retrieval_cand"] = {"candidates": n_cand, "p50_ms": percentile(times, 50) * 1e3}
+    log(f"phase 12f: mind x retrieval_cand ({n_cand} candidates): p50 "
+        f"{rec['retrieval_cand']['p50_ms']:.3f} ms over {len(times)} calls")
+    return rec
+
+
+def close_tree(got, want, atol_frac, what, scale=None):
+    """Every leaf of two trees within atol_frac of max|want| (of the leaf,
+    or of ``scale``) + 1e-5·|want|; the largest error over the scale."""
+    from repro_torch.tree import tree_leaves
+
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        s = float(b.abs().max()) if scale is None else scale
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        if not bool(((a - b).abs() <= atol_frac * s + 1e-5 * b.abs()).all()):
+            raise AssertionError(f"{what}: card vs CPU off by {float((a - b).abs().max())}")
+        worst = max(worst, float((a - b).abs().max()) / max(s, 1e-30))
+    return worst
+
+
+def phase12g_reduced(dev):
+    """The reduced GNN configs in each shape kind and reduced MIND, card
+    against CPU on the same weights and inputs: a train step's loss and
+    gradients, the serve and retrieval scores."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.recsys import BehaviorStream
+    from repro_torch.models import gnn, recsys
+    from repro_torch.tree import tree_map
+
+    rec = {}
+    small = dict(name="smoke", n_nodes=24, n_edges=80, d_feat=16, batch_nodes=8,
+                 fanout=(3, 2), graph_batch=4)
+    for arch, kind in GNN_CELLS:
+        cfg = get_arch(arch).reduced
+        shape = ShapeSpec(kind=kind, **small)
+        gen = torch.Generator().manual_seed(0)
+        cpu = gnn.init_params(cfg, 16, gen)
+        batch = gnn_batch(cfg, shape, gen, "cpu")
+        card = tree_map(lambda t: t.to(dev, copy=True), cpu)
+        bcard = {k: tuple(x.to(dev) for x in v) if isinstance(v, tuple) else v.to(dev)
+                 for k, v in batch.items()}
+        lc, gc_ = gnn.loss_and_grads(cfg, shape, cpu, batch)
+        ld, gd = gnn.loss_and_grads(cfg, shape, card, bcard)
+        if not math.isclose(float(ld), float(lc), rel_tol=1e-5):
+            raise AssertionError(f"{arch} {kind}: loss {float(ld)} on the card, {float(lc)}")
+        err = close_tree(gd, gc_, MODEL_GRAD_ATOL, f"{arch} {kind} grads")
+        rec[f"{arch} {kind}"] = {"loss": float(lc), "grad_err": err}
+        log(f"phase 12g: {cfg.name} x {kind} card vs CPU: loss {float(ld):.7f} / "
+            f"{float(lc):.7f}, grads {err:.2e} of max")
+    cfg = get_arch("mind").reduced
+    cpu = recsys.init_params(cfg, torch.Generator().manual_seed(0))
+    card = {k: v.to(dev, copy=True) for k, v in cpu.items()}
+    b = {k: torch.from_numpy(v) for k, v in
+         BehaviorStream(cfg.n_items, cfg.hist_len, 16, seed=0).batch_at(0).items()}
+    bd = {k: v.to(dev) for k, v in b.items()}
+    lc, gc_ = recsys.loss_and_grads(cfg, cpu, b)
+    ld, gd = recsys.loss_and_grads(cfg, card, bd)
+    if not math.isclose(float(ld), float(lc), rel_tol=1e-5):
+        raise AssertionError(f"mind: loss {float(ld)} on the card, {float(lc)} on the CPU")
+    scale = max(float(g.abs().max()) for g in gc_.values())
+    err = close_tree(gd, gc_, MODEL_GRAD_ATOL, "mind grads", scale=scale)
+    cand = torch.randint(0, cfg.n_items, (16, 32), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    sc = recsys.serve_scores(cfg, cpu, dict(b, cand_ids=cand))
+    sd = recsys.serve_scores(cfg, card, dict(bd, cand_ids=cand.to(dev)))
+    serve_err = close_tree(sd, sc, MODEL_FWD_ATOL, "mind serve scores")
+    one = {k: v[:1] for k, v in b.items()}
+    rc = recsys.retrieval_scores(cfg, cpu, dict(one, cand_ids=cand.reshape(-1)))
+    rd = recsys.retrieval_scores(cfg, card, {**{k: v.to(dev) for k, v in one.items()},
+                                             "cand_ids": cand.reshape(-1).to(dev)})
+    ret_err = close_tree(rd, rc, MODEL_FWD_ATOL, "mind retrieval scores")
+    rec["mind"] = {"loss": float(lc), "grad_err": err, "serve_err": serve_err,
+                   "retrieval_err": ret_err}
+    log(f"phase 12g: {cfg.name} card vs CPU: loss {float(ld):.7f} / {float(lc):.7f}, grads "
+        f"{err:.2e} of the largest gradient, serve scores {serve_err:.2e}, retrieval "
+        f"{ret_err:.2e} of max (atol {MODEL_GRAD_ATOL} for gradients, {MODEL_FWD_ATOL} for "
+        f"scores, rtol 1e-5)")
+    return rec
+
+
+def phase12_models(dev, holder, root, graph_job):
+    """Phase 12: every model of the GNN family and MIND at full width, then
+    the reduced configs card vs CPU.  Returns the record and the kernel
+    launches of the models (none expected: the reference's GNN and MIND
+    steps reach no pallas_call) and of the Steiner sampler (= its rounds).
+    ``holder`` holds phase 6's handle, freed after 12e; ``graph_job``
+    builds 12a's host graph."""
+    import torch
+
+    rec = {}
+    t_phase = time.perf_counter()
+    zero_kernel_counts()
+    rec["12a"] = phase12a_sage_sampled(dev, graph_job)
+    rec["12b"] = phase12_full_graph_sm(dev)
+    rec["12c"] = phase12c_schnet(dev)
+    rec["12d"] = phase12d_ogb_products(dev)
+    model_launches = kernel_counts()
+    rec["12e"] = phase12e_steiner_sampled(dev, holder.pop(), root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_kernel_counts()
+    rec["12f"] = phase12f_mind(dev)
+    rec["12g"] = phase12g_reduced(dev)
+    later = kernel_counts()
+    model_launches = {k: v + later[k] for k, v in model_launches.items()}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 12: {rec['phase_s']:.1f} s; kernel launches on the model paths "
+        f"{json.dumps(model_launches)}; the Steiner sampler's minplus_call "
+        f"{rec['12e']['launches']}")
+    if any(model_launches.values()):
+        raise AssertionError(f"the model paths launched {model_launches}")
+    return rec, model_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=23, help="RMAT scale of phases 6 and 7")
@@ -2754,6 +3283,8 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default=None, help="also write the record to this file")
     ap.add_argument("--topk-kernel-k", type=int, default=TOPK_KERNEL_K,
                     help="frontier_size of the top-K kernel schedule in phase 9")
+    ap.add_argument("--only-models", action="store_true",
+                    help="a rehearsal of phase 12: phases 1, 6 and 12 only, no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -2797,6 +3328,22 @@ def main(argv=None) -> int:
         seconds[phase] = round(time.perf_counter() - t_start - sum(seconds.values()), 1)
 
     done("1-2")
+    if args.only_models:  # phase 6's handle, then phase 12
+        graph_job = HostJob(reddit_graph_job)
+        try:
+            _, h, _, _, _ = phase6_full_width(dev, args.scale, args.seeds, tally)
+            done("6")
+            models_rec, _ = phase12_models(dev, [h], root, graph_job)
+        finally:
+            graph_job.stop()
+        done("12")
+        log(f"script {time.perf_counter() - t_start:.1f} s after the imports; by phase "
+            f"{json.dumps(seconds)}")
+        if args.json:
+            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json).write_text(json.dumps({"device": smi, "models": models_rec},
+                                                  indent=1))
+        return 0
     # ---- phase 3
     phase3_fixed_answers(dev)
     done("3")
@@ -2853,15 +3400,25 @@ def main(argv=None) -> int:
     log("tolerance: exact (every output of every kernel equals the plain version's; "
         + ", ".join(f"{k}: {t.cases} cases, {t.mismatches} mismatches"
                     for k, t in tally.items()) + ")")
-    # ---- phase 11 (the trainer at full width), with the Steiner phases' state freed
+    # ---- phase 11 (the trainer at full width), with the Steiner phases' state
+    # freed but phase 6's handle (phase 12e samples its subgraphs)
+    holder = [h]
     del h, st, hb, blocked16, lanes_in, seg_in
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase 11: {torch.cuda.memory_allocated() / 1e9:.2f} GB held from earlier phases")
-    trainer_rec, trainer_launches = phase11_trainer(dev, root)
-    done("11")
+    log(f"phase 11: {torch.cuda.memory_allocated() / 1e9:.2f} GB held from earlier phases "
+        f"(phase 6's prepared graph)")
+    graph_job = HostJob(reddit_graph_job)  # phase 12a's host graph, meanwhile
+    try:
+        trainer_rec, trainer_launches = phase11_trainer(dev, root)
+        done("11")
+        # ---- phase 12 (the GNN family and MIND at full width; the Steiner sampler)
+        models_rec, model_launches = phase12_models(dev, holder, root, graph_job)
+    finally:
+        graph_job.stop()
+    done("12")
 
-    # ---- phase 12
+    # ---- phase 13
     by_path = {"minplus_call (pallas, phase 6)": rec["launches_per_solve"] * 4,
                "minplus_call (lanes, phase 7)": lane_launches,
                "minplus_blocked_call (pallas, phase 8)": blocked_launches,
@@ -2871,13 +3428,15 @@ def main(argv=None) -> int:
                **{f"{k[:-1]}, phase 9b)": v for k, v in store_launches.items()},
                "minplus_call (traced pallas, phase 10b)": obs_launches["single"],
                "minplus_call (lanes, traced server, phase 10b)": obs_launches["lanes"],
-               "every kernel (trainer, phase 11)": sum(trainer_launches.values())}
+               "every kernel (trainer, phase 11)": sum(trainer_launches.values()),
+               "every kernel (GNN and MIND models, phase 12)": sum(model_launches.values()),
+               "minplus_call (Steiner sampler, phase 12e)": models_rec["12e"]["launches"]}
     log(f"launches by path: {json.dumps(by_path)}")
     launches = {"minplus_call": rec["launches_per_solve"] * 4
                 + sched_launches["minplus_call (pallas_frontier)"]
                 + store_launches["minplus_call (pallas from a store)"]
                 + store_launches["minplus_call (pallas, compacted and overlay stores)"]
-                + obs_launches["single"],
+                + obs_launches["single"] + models_rec["12e"]["launches"],
                 "minplus_call (lanes)": lane_launches
                 + store_launches["minplus_call (lanes, store-backed server)"]
                 + obs_launches["lanes"],
@@ -2914,12 +3473,12 @@ def main(argv=None) -> int:
              "full_width": rec, "serving": serve_rec, "blocked_full_width": blocked_rec,
              "schedules_full_width": sched_rec, "scale16_lane_launches": lanes16,
              "scale16_store_launches": store16, "store_full_width": store_rec,
-             "mesh": mesh_rec, "obs": obs_rec, "trainer": trainer_rec,
+             "mesh": mesh_rec, "obs": obs_rec, "trainer": trainer_rec, "models": models_rec,
              "launches_by_path": by_path,
              "kernel_times": times, "kernels": kernels, "seconds": total_s}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
-    # ---- phase 13
+    # ---- phase 14
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
 """repro_torch: the Steiner solver on PyTorch, with hand-written CUDA kernels,
-and the reference's LM training substrate.
+and the reference's model substrate (the LM trainer, the GNN family, MIND).
 
 The PyTorch/CUDA counterpart of the JAX package ``repro``; the two packages
 share no code.  This package mirrors its layout and names so that every
@@ -21,14 +21,16 @@ delta/     edge deltas over a store: the log, its overlay, compaction, warm
 obs/       metrics, spans, the Chrome trace recorder and per-round
            telemetry (off until ``obs.enable()``), the per-rank flight
            recorder's analytics, and ``python -m repro_torch.obs``
-data/      graph generators and seed selection, and the synthetic token
-           stream (numpy-identical to ``repro``)
+data/      graph generators, seed selection and neighbour sampling, the
+           synthetic token and behaviour streams (numpy-identical to
+           ``repro``)
 configs/   the architecture registry (``get_arch``: the eleven archs' configs
            and shape cells) and the Steiner solver presets
 models/    the LM family: RMSNorm, interleaved RoPE, chunked online-softmax
            GQA and MLA attention, int8 KV cache, SwiGLU and the MoE FFN;
            the transformer over stacked layer parameters with its train,
-           decode and prefill steps
+           decode and prefill steps; the GNN family (GraphSAGE, GatedGCN,
+           SchNet, GraphCast) and the MIND recommender
 optim/     AdamW with fp32 or 8-bit block-quantized moments, updated in place
 checkpoint/ npz checkpoints in the reference's format (either package
            restores the other's), async and rolling
@@ -36,7 +38,7 @@ launch/    the fault-tolerant training loop ``python -m
            repro_torch.launch.train``
 tree       nested dicts of tensors (the reference's pytrees)
 convert    numpy arrays of the JAX package -> this package's objects (graphs,
-           Voronoi state, LM parameters and optimizer state)
+           Voronoi state, LM, GNN and MIND parameters, optimizer state)
 
 Entry points run on the GPU unless the caller asks for ``device="cpu"``.
 A CUDA tensor given to a kernel wrapper launches the kernel or raises; a CPU
@@ -44,8 +46,9 @@ tensor takes the plain PyTorch version.  Every single-device schedule of
 the reference runs, for ``backend="single"`` and ``backend="batch"``, with
 Prim or Borůvka, over an in-memory graph or a graph store with its delta
 log; the mesh backends run the paper's distributed engine over
-``torch.distributed``.  The LM stack has no kernel of its own: the
-reference's transformer is plain XLA, and its port plain PyTorch.
+``torch.distributed``.  The model stacks have no kernel of their own: the
+reference's transformer, GNNs and MIND are plain XLA, and their port
+plain PyTorch.
 """
 
 __version__ = "0.1.0"

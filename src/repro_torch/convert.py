@@ -2,8 +2,8 @@
 
 The data takes the place of weights in this system: these functions let the
 two packages compute on the same graph, ELL view and Voronoi state, and the
-LM family on the same weights and optimizer state (with their inverses, for
-comparisons).  Pass ``np.asarray(x)`` of the JAX arrays; nothing here
+LM, GNN and MIND families on the same weights and optimizer state (with
+their inverses, for comparisons).  Pass ``np.asarray(x)`` of the JAX arrays; nothing here
 imports JAX.
 """
 
@@ -69,14 +69,11 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def lm_params_from_numpy(tree, cfg, *, device="cuda"):
-    """The reference's LM parameter tree (``init_params``' nested dict, its
-    leaves as numpy) as this package's, each leaf checked against
-    ``param_defs(cfg)``."""
-    from repro_torch.models.transformer import _nest, param_defs
-
+def _params_from_numpy(tree, defs, nest, device):
+    """The leaves of ``tree`` named by ``defs`` ({dotted path: (shape,
+    dtype)}), each checked against its entry, nested by ``nest``."""
     flat = {}
-    for name, (shape, dtype) in param_defs(cfg).items():
+    for name, (shape, dtype) in defs.items():
         node = tree
         for part in name.split("."):
             node = node[part]
@@ -85,7 +82,16 @@ def lm_params_from_numpy(tree, cfg, *, device="cuda"):
             raise ValueError(f"{name}: {t.dtype}{tuple(t.shape)}, the config wants "
                              f"{dtype}{shape}")
         flat[name] = t
-    return _nest(flat)
+    return nest(flat)
+
+
+def lm_params_from_numpy(tree, cfg, *, device="cuda"):
+    """The reference's LM parameter tree (``init_params``' nested dict, its
+    leaves as numpy) as this package's, each leaf checked against
+    ``param_defs(cfg)``."""
+    from repro_torch.models.transformer import _nest, param_defs
+
+    return _params_from_numpy(tree, param_defs(cfg), _nest, device)
 
 
 def lm_params_to_numpy(params):
@@ -93,6 +99,33 @@ def lm_params_to_numpy(params):
     from repro_torch.tree import tree_map
 
     return tree_map(tensor_to_numpy, params)
+
+
+def gnn_params_from_numpy(tree, cfg, d_feat: int, *, device="cuda"):
+    """The reference's GNN parameter dict (``repro.models.gnn.init_params``'
+    nested dict, leaves as numpy) as this package's, each leaf checked
+    against ``param_defs(cfg, d_feat)``."""
+    from repro_torch.models.gnn import _nest, param_defs
+
+    return _params_from_numpy(tree, param_defs(cfg, d_feat), _nest, device)
+
+
+def gnn_params_to_numpy(params):
+    """The inverse of :func:`gnn_params_from_numpy`."""
+    return lm_params_to_numpy(params)
+
+
+def recsys_params_from_numpy(tree, cfg, *, device="cuda"):
+    """The reference's MIND parameters (a flat dict, leaves as numpy) as
+    this package's, each leaf checked against ``param_defs(cfg)``."""
+    from repro_torch.models.recsys import param_defs
+
+    return _params_from_numpy(tree, param_defs(cfg), dict, device)
+
+
+def recsys_params_to_numpy(params):
+    """The inverse of :func:`recsys_params_from_numpy`."""
+    return lm_params_to_numpy(params)
 
 
 def opt_state_from_numpy(state, *, device="cuda"):

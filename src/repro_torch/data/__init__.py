@@ -1,1 +1,2 @@
-"""Host-side graph generators and seed selection."""
+"""Host-side graph generators, seed selection and neighbour sampling; the
+synthetic token and user-behaviour streams."""

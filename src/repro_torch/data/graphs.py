@@ -1,10 +1,12 @@
-"""Host-side graph generators and seed selection, numpy-identical to ``repro``.
+"""Host-side graph generators, seed selection and neighbour sampling,
+numpy-identical to ``repro``.
 
 A copy of ``repro.data.graphs``: ``rmat_edges(s, f, seed=x)`` here and
 there are the same graph, edge for edge (the chunked generator lives in
 :mod:`repro_torch.graphstore.ingest`), and so are the Erdős–Rényi and grid
-graphs and the paper's four seed-selection strategies (§V, §V-E):
-BFS-level, uniform-random, eccentric (k-BFS) and proximate.
+graphs, the paper's four seed-selection strategies (§V, §V-E):
+BFS-level, uniform-random, eccentric (k-BFS) and proximate, and
+GraphSAGE's fanout sampling over the symmetrized CSR.
 """
 
 from __future__ import annotations
@@ -166,3 +168,36 @@ def build_csr(n: int, src: np.ndarray, dst: np.ndarray):
     source = ArraySource(src, dst, None, n, chunk_edges=max(1, len(src)))
     indptr, indices, _ = csr_from_chunks(n, source, symmetrize=True)
     return indptr, indices
+
+
+def sample_neighbors(
+    indptr: np.ndarray,
+    indices: np.ndarray,
+    frontier: np.ndarray,
+    fanout: int,
+    rng: np.random.Generator,
+) -> np.ndarray:
+    """Uniform with-replacement fanout sampling → (len(frontier), fanout).
+
+    Vertices with zero degree sample themselves (self-loop), matching the
+    padded fixed-shape contract of the GNN step.  Row i's offsets are drawn
+    in [0, deg(frontier[i])), row after row from ``rng``.
+
+    The reference's copy passes the (F,) degrees as the bound of an
+    (F, fanout) draw, which numpy broadcasts along the last axis: it raises
+    unless F == 1 (or F == fanout, where column j takes vertex j's degree),
+    and a zero-degree vertex at the end of the CSR indexes past it.  Here
+    each row takes its own degree (``[:, None]``) and the gather stays in
+    bounds; on one-vertex frontiers the two agree bit for bit, and a
+    frontier of F vertices equals F one-vertex calls in turn.
+    """
+    frontier = np.asarray(frontier)
+    deg = (indptr[frontier + 1] - indptr[frontier]).astype(np.int64)
+    offs = rng.integers(0, np.maximum(deg, 1)[:, None], size=(len(frontier), fanout))
+    if len(indices) == 0:
+        return np.repeat(frontier[:, None], fanout, 1).astype(np.int32)
+    base = indptr[frontier][:, None]
+    pos = np.minimum(base + offs, base + np.maximum(deg[:, None] - 1, 0))
+    out = indices[np.minimum(pos, len(indices) - 1)]
+    out = np.where(deg[:, None] == 0, frontier[:, None], out)
+    return out.astype(np.int32)

@@ -296,6 +296,23 @@ def _check_ids(s: np.ndarray, d: np.ndarray, n: int) -> None:
         )
 
 
+def _stable_order(keys: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``np.argsort(keys, kind="stable")`` for keys in ``[0, n)``, and the
+    sorted keys.  Where key and position fit 63 bits, one sort of the
+    distinct int64 values ``key << b | position`` (several times faster
+    than numpy's stable argsort of a large chunk); else the stable argsort.
+    """
+    m = keys.shape[0]
+    ib = max(int(m - 1).bit_length(), 1)
+    if max(int(n - 1).bit_length(), 1) + ib > 63:
+        o = np.argsort(keys, kind="stable")
+        return o, keys[o]
+    comp = keys.astype(np.int64) << ib
+    comp |= np.arange(m, dtype=np.int64)
+    comp.sort()
+    return comp & ((1 << ib) - 1), (comp >> ib).astype(keys.dtype)
+
+
 def csr_two_pass(
     n: int,
     source,
@@ -352,8 +369,8 @@ def csr_two_pass(
             s, d, w, nbytes = _chunk_pairs(chunk, symmetrize)
             if s.size == 0:  # sources may legally yield empty chunks
                 continue
-            o = np.argsort(s, kind="stable")
-            ss, dd, ww = s[o], d[o], w[o]
+            o, ss = _stable_order(s, n)
+            dd, ww = d[o], w[o]
             # within-run offsets: position of each edge inside its vertex run
             run_start = np.r_[0, np.flatnonzero(ss[1:] != ss[:-1]) + 1]
             run_len = np.diff(np.r_[run_start, ss.shape[0]])

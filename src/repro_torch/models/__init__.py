@@ -1,2 +1,3 @@
-"""The LM family: building blocks (``layers``) and the decoder-only
-transformer with its train, decode and prefill steps (``transformer``)."""
+"""The model families: building blocks (``layers``) and the decoder-only
+transformer with its train, decode and prefill steps (``transformer``);
+the GNN family (``gnn``) and the MIND recommender (``recsys``)."""

@@ -905,3 +905,110 @@ def test_lm_checkpoint_round_trip_from_the_card(cuda, tmp_path):
 def _q8_fields(leaf):
     """A tensor, or an 8-bit state's payload and scales."""
     return [leaf.q, leaf.scale] if hasattr(leaf, "scale") else [leaf]
+
+
+# ---- the GNN family and MIND on the card (plain PyTorch: the card's
+# index_add sums a row in atomic order, so card and CPU agree within f32
+# rounding, as tests/test_torch_gnn.py states)
+
+GNN_CARD_CELLS = [("graphsage-reddit", "gnn_full"), ("graphsage-reddit", "gnn_sampled"),
+                  ("gatedgcn", "gnn_full"), ("schnet", "gnn_full"), ("schnet", "gnn_batched"),
+                  ("graphcast", "gnn_full")]
+
+
+def _gnn_inputs(cfg, kind, gen):
+    """A small batch of a GNN cell (24 nodes, 80 edges, 16 features), on the CPU."""
+    N, E, F = 24, 80, 16
+
+    def randn(*s):
+        return torch.randn(s, generator=gen)
+
+    def randint(hi, *s):
+        return torch.randint(0, hi, s, generator=gen, dtype=torch.int32)
+
+    if kind == "gnn_sampled":
+        return {"feats": (randn(8, F), randn(24, F), randn(48, F)),
+                "labels": randint(cfg.n_classes, 8)}
+    if kind == "gnn_batched":
+        return {"z": randn(4, N, F), "pos": randn(4, N, 3), "edges_t": randint(N, E, 2),
+                "energy": randn(4)}
+    if cfg.kind == "schnet":
+        return {"x": randn(N, F), "pos": randn(N, 3), "edges": randint(N, E, 2),
+                "energy_sum": torch.ones(())}
+    if cfg.kind == "graphcast":
+        nm = N // 4 + 1
+        return {"x": randn(N, F), "g2m": torch.stack([randint(N, E), randint(nm, E)], 1),
+                "mesh_e": randint(nm, 56, 2), "m2g": torch.stack([randint(nm, E), randint(N, E)], 1),
+                "target": randn(N, cfg.n_vars)}
+    batch = {"x": randn(N, F), "edges": randint(N, E, 2), "labels": randint(cfg.n_classes, N)}
+    if cfg.kind == "gatedgcn":
+        batch["ew"] = torch.rand(E, generator=gen)
+    return batch
+
+
+@pytest.mark.parametrize("arch,kind", GNN_CARD_CELLS)
+def test_gnn_train_step_on_card_matches_cpu(cuda, arch, kind):
+    """One AdamW step of a reduced GNN config on the card and on the CPU: the
+    same loss, gradients and first moments."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import gnn
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_arch(arch).reduced
+    shape = ShapeSpec(name="small", kind=kind)
+    gen = torch.Generator().manual_seed(0)
+    cpu = gnn.init_params(cfg, 16, gen)
+    batch = _gnn_inputs(cfg, kind, gen)
+    card = tree_map(lambda t: t.to(cuda, copy=True), cpu)
+    bcard = {k: tuple(x.to(cuda) for x in v) if isinstance(v, tuple) else v.to(cuda)
+             for k, v in batch.items()}
+    lc, gc = gnn.loss_and_grads(cfg, shape, cpu, batch)
+    ld, gd = gnn.loss_and_grads(cfg, shape, card, bcard)
+    np.testing.assert_allclose(float(ld), float(lc), rtol=1e-5)
+    for a, b in zip(tree_leaves(gd), tree_leaves(gc)):
+        assert a.device.type == cuda.type
+        _close(a, b, 2e-4)
+    opt = OptConfig(lr=1e-3)
+    sc, sd = adamw_init(cpu, opt), adamw_init(card, opt)
+    _, sc, lc = gnn.make_train_step(cfg, shape, opt)(cpu, sc, batch)
+    _, sd, ld = gnn.make_train_step(cfg, shape, opt)(card, sd, bcard)
+    np.testing.assert_allclose(float(ld), float(lc), rtol=1e-5)
+    for a, b in zip(tree_leaves(sd["mu"]), tree_leaves(sc["mu"])):
+        _close(a, b, 2e-4)
+
+
+def test_mind_step_and_scores_on_card_match_cpu(cuda):
+    """Reduced MIND on the card and on the CPU: a train step's loss and
+    gradients (at the scale of the largest gradient), the serve and
+    retrieval scores; an out-of-range id raises on the card too."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.recsys import BehaviorStream
+    from repro_torch.models import recsys
+
+    cfg = get_arch("mind").reduced
+    cpu = recsys.init_params(cfg, torch.Generator().manual_seed(0))
+    card = {k: v.to(cuda, copy=True) for k, v in cpu.items()}
+    b = {k: torch.from_numpy(v) for k, v in
+         BehaviorStream(cfg.n_items, cfg.hist_len, 16, seed=0).batch_at(0).items()}
+    bd = {k: v.to(cuda) for k, v in b.items()}
+    lc, gc = recsys.loss_and_grads(cfg, cpu, b)
+    ld, gd = recsys.loss_and_grads(cfg, card, bd)
+    np.testing.assert_allclose(float(ld), float(lc), rtol=1e-5)
+    scale = max(float(g.abs().max()) for g in gc.values())
+    for k in gc:
+        got, want = gd[k].cpu(), gc[k]
+        assert bool(((got - want).abs() <= 2e-4 * scale + 1e-5 * want.abs()).all()), k
+    cand = torch.randint(0, cfg.n_items, (16, 32), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    _close(recsys.serve_scores(cfg, card, dict(bd, cand_ids=cand.to(cuda))),
+           recsys.serve_scores(cfg, cpu, dict(b, cand_ids=cand)), 1e-5)
+    one = {k: v[:1] for k, v in b.items()}
+    _close(recsys.retrieval_scores(cfg, card, {**{k: v.to(cuda) for k, v in one.items()},
+                                               "cand_ids": cand.reshape(-1).to(cuda)}),
+           recsys.retrieval_scores(cfg, cpu, dict(one, cand_ids=cand.reshape(-1))), 1e-5)
+    bad = cand.clone()
+    bad[0, 0] = cfg.n_items
+    with pytest.raises(IndexError):
+        recsys.serve_scores(cfg, card, dict(bd, cand_ids=bad.to(cuda)))

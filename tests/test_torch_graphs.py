@@ -68,3 +68,19 @@ def test_build_csr_identical(kind):
     src, dst, _, n = _graph(kind)
     for x, y in zip(jdata.build_csr(n, src, dst), tdata.build_csr(n, src, dst)):
         _same(x, y)
+
+
+@pytest.mark.parametrize("n,m,seed", [(1, 5, 0), (7, 1000, 1), (1 << 18, 50_000, 2),
+                                      (1 << 40, 3000, 3), (5, 0, 4)])
+def test_stable_order_is_the_stable_argsort(n, m, seed):
+    """The CSR builder's sort: one sort of (key << b | position), or the
+    stable argsort where key and position do not fit 63 bits (n = 2^40
+    with 12 position bits)."""
+    from repro_torch.graphstore.ingest import _stable_order
+
+    keys = np.random.default_rng(seed).integers(0, min(n, 1 << 30) if n > 6 else n, m)
+    keys = keys.astype(np.int64 if n > 1 << 31 else np.int32)
+    order, sorted_keys = _stable_order(keys, n)
+    want = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(order, want)
+    _same(sorted_keys, keys[want])
