@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # full width: RMAT scale 23, 1024 seeds
     python3 chip_smoke.py --scale 18 # a shorter rehearsal of phases 6 to 9
     python3 chip_smoke.py --scale 18 --only-models  # phases 1, 6 and 12 alone
+    python3 chip_smoke.py --scale 18 --only-models --trainer  # and phase 11 with 13
 
 Phases (any failure raises and the script exits non-zero, printing no
 result):
@@ -168,11 +169,28 @@ result):
    serve_p99 (p50 and p99 over 120 calls), serve_bulk (B 262,144) and
    retrieval_cand (10^6 candidates), data from BehaviorStream; 12g the
    reduced configs card vs CPU; no kernel launched by a model;
-13. a line of launches by path, then one JSON line with each kernel's
+13. sharded training on a device mesh (repro_torch.distributed,
+   launch/mesh.py, every family's param, optimizer and input specs) on a
+   (1, 1) DeviceMesh of one NCCL rank: 13a (inside phase 11) starcoder2-3b
+   at full width through param_specs, one (8, 64) step on DTensor views of
+   phase 11's own parameters and moments against its unsharded step 0
+   from the same state (loss and parameters within phase 11's tolerance,
+   bit-identical expected), its seconds and peak beside the unsharded
+   step's; 13b (inside phase 12) the same for graphsage-reddit x
+   ogb_products and mind x train_batch against a step of phase 12's state;
+   13c compress_tree over starcoder2-3b's gradient tree (seconds; a slice
+   of 2^24 + 37 values bit for bit against the CPU) and compressed_psum on
+   the world of one; 13d train()'s checkpoint at the 100m preset restored
+   with shardings= equal to the unsharded restore; 13e a table of
+   per-device parameter and optimizer-state GB of every train cell of the
+   registry on (16, 16) and (2, 16, 16) from shard_shape, beside the
+   card's memory (state only: the port's step adds one layer gathered at a
+   time, and computes every layer whole on each rank of "model");
+14. a line of launches by path, then one JSON line with each kernel's
    launches on its paths (the top-K ones of phase 9 included), its error and
    mismatches against the plain version, and its time beside its bound and
    the plain version's time;
-14. last line: {"ok": true, "device": {...}}.
+15. last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one card.
 """
@@ -2437,6 +2455,323 @@ def kernel_times(dev, ell, st, blocked_in, lanes_in, seg_in, tally):
     return res
 
 
+# ---- phase 13: sharded training on a device mesh (src/repro_torch/distributed/,
+# launch/mesh.py and every family's param, optimizer and input specs), run
+# inside phases 11 and 12 on one NCCL rank: a (1, 1) DeviceMesh
+
+COMPRESS_SLICE = (1 << 24) + 37  # values held bit for bit against the CPU (13c)
+PROD_MESHES = (((16, 16), ("data", "model")), ((2, 16, 16), ("pod", "data", "model")))
+
+
+_ONE_RANK = []
+
+
+def one_rank_mesh(dev):
+    """A (1, 1) ("data", "model") DeviceMesh on this card (a world of one,
+    NCCL, made by launch/mesh.py if phase 10's is gone); one for the run."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    if not _ONE_RANK or not dist.is_initialized():
+        _ONE_RANK[:] = [make_test_mesh((1, 1), ("data", "model"), device=dev.type)]
+    return _ONE_RANK[0]
+
+
+def wrap(tree, specs):
+    """``tree``'s tensors as DTensors laid out by ``specs`` (a tree of
+    ShapeDtypeStructs): ``DTensor.from_local`` views, no copy (on a (1, 1)
+    mesh a rank's block is the whole tensor)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import tree_map
+
+    def one(t, s):
+        sh = s.sharding
+        if tuple(t.shape) != sh.shard_shape(s.shape):
+            raise AssertionError(f"a {tuple(t.shape)} block for {s}")
+        return DTensor.from_local(t, sh.mesh, sh.placements, run_check=False)
+
+    return tree_map(one, tree, specs)
+
+
+def params_vs(dev, got, want_host, lr=None, chunk=1 << 27):
+    """Parameters (card) against a step's (host copies): (bit-identical,
+    largest |diff| over max|want|, share of elements off rtol/atol 1e-5 of
+    max).  Without ``lr``: fail above phase 11's gradient tolerance
+    (GRADS_ATOL of max + 1e-5·|want|); with it (the card's atomic sums):
+    fail above 2·lr + 1e-5·|want| or with more than 0.1 % of the elements
+    off (tests/test_torch_sharded_steps.py's one-step bound).  Compared in
+    chunks of ``chunk`` elements (f32 temporaries of a 1.1·10^9-element
+    stack would not fit beside phase 11's state)."""
+    same, worst, off, total = True, 0.0, 0, 0
+    for a, h in zip(got, want_host):
+        a, h = a.reshape(-1), h.reshape(-1)
+        scale = max(float(h[i:i + chunk].to(dev).float().abs().max())
+                    for i in range(0, h.numel(), chunk))
+        for i in range(0, a.numel(), chunk):
+            x, y = a[i:i + chunk], h[i:i + chunk].to(dev)
+            same = same and bool((x == y).all())
+            d = (x.float() - y.float()).abs()
+            yf = y.float().abs()
+            worst = max(worst, float(d.max()) / max(scale, 1e-30))
+            tol = (2 * lr if lr else GRADS_ATOL * scale) + 1e-5 * yf
+            if not bool((d <= tol).all()):
+                raise AssertionError(f"sharded vs unsharded parameters off by {float(d.max())}")
+            off += int((d > 1e-5 * scale + 1e-5 * yf).sum())
+            total += y.numel()
+            del y, d, yf
+    if lr and off > 1e-3 * total:
+        raise AssertionError(f"{off} of {total} parameters off after one step")
+    return same, worst, off / max(total, 1)
+
+
+def phase13a_sharded_lm(dev, cfg, params, opt_state, step, tok, opt_cfg, rec):
+    """13a: starcoder2-3b at full width through ``param_specs`` on a (1, 1)
+    mesh.  Phase 11's unsharded step 0 from the fresh state; the state it
+    started from restored (parameters from a host copy, moments zeroed);
+    one sharded step (``make_train_step(..., ("data",),
+    param_shardings=...)``) on DTensor views of the same tensors and the
+    batch placed by ``input_specs``; loss, parameters and moments against
+    the unsharded step's.  Returns phase 11's step-0 row."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import opt_state_specs
+    from repro_torch.tree import tree_leaves
+
+    leaves, moments = tree_leaves(params), tree_leaves(opt_state["mu"])
+    p0 = [t.to("cpu", copy=True) for t in leaves]
+    row = train_step_row(step, params, opt_state, tok, cfg, "repeated batch, step 0")
+    p1 = [t.to("cpu", copy=True) for t in leaves]
+    msum = [float(t.sum(dtype=torch.float64)) for t in moments]
+    with torch.no_grad():
+        for t, h in zip(leaves, p0):
+            t.copy_(h)
+        for t in moments:
+            t.zero_()
+    del p0
+    opt_state["count"] = torch.zeros((), dtype=torch.int32, device=dev)
+    mesh = one_rank_mesh(dev)
+    specs = tf.param_specs(cfg, mesh)
+    ospecs = opt_state_specs(specs, opt_cfg, mesh)
+    cell = ShapeSpec(name="phase11", kind="train", seq_len=tok.shape[1],
+                     global_batch=tok.shape[0])
+    dtok = tf.input_specs(cfg, cell, mesh)["tokens"].sharding.distribute(tok)
+    sstep = tf.make_train_step(cfg, opt_cfg, ("data",), param_shardings=specs)
+    torch.cuda.reset_peak_memory_stats()
+    (_, dstate, loss), s = timed(sstep, wrap(params, specs), wrap(opt_state, ospecs), dtok)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    opt_state["count"] = dstate["count"].to_local()
+    same, worst, _ = params_vs(dev, leaves, p1)
+    del p1
+    m_same = all(float(t.sum(dtype=torch.float64)) == m for t, m in zip(moments, msum))
+    loss_err = abs(float(loss) - row["loss"]) / abs(row["loss"])
+    rec["13a"] = {"loss": float(loss), "loss_unsharded": row["loss"], "loss_rel_err": loss_err,
+                  "params_bit_identical": same, "params_max_err": worst,
+                  "moment_sums_equal": m_same, "s": s, "s_unsharded_step0": row["s"],
+                  "peak_gb": peak, "peak_gb_unsharded": row["peak_gb"]}
+    log(f"phase 13a: {cfg.name} at full width through param_specs on a (1, 1) DeviceMesh "
+        f"(one NCCL rank), one ({tok.shape[0]}, {tok.shape[1]}) step on phase 11's batch from "
+        f"phase 11's fresh state: loss {float(loss):.6f} against the unsharded "
+        f"{row['loss']:.6f} (rel {loss_err:.2e}); parameters bit-identical {same} (largest "
+        f"diff {worst:.2e} of max, phase 11's tolerance {GRADS_ATOL} of max + rtol 1e-5), "
+        f"moment sums equal {m_same}; sharded step {s:.3f} s against the unsharded step 0's "
+        f"{row['s']:.3f} s; peak {peak:.2f} GB against {row['peak_gb']:.2f} GB")
+    if loss_err > LOSS_RTOL:
+        raise AssertionError(f"13a: the sharded step's loss differs: {rec['13a']}")
+    return row
+
+
+def phase13c_compress(dev, grads, rec):
+    """13c: ``compress_tree`` over starcoder2-3b's full gradient tree (a
+    leaf at a time: the whole tree's f32 residuals and int8 payload would
+    not fit beside phase 11's state), a slice of COMPRESS_SLICE values of
+    one leaf bit for bit against the CPU, and ``compressed_psum`` on the
+    world of one (its mean = the dequantized payload)."""
+    import torch
+
+    from repro_torch.distributed.compression import _dequant, compress_tree, compressed_psum
+    from repro_torch.tree import tree_leaves
+
+    flat = [g for x in tree_leaves(grads) for g in (x if isinstance(x, list) else [x])]
+    n = sum(g.numel() for g in flat)
+    sync()
+    t0 = time.perf_counter()
+    q_bytes = 0
+    for g in flat:
+        q8, err = compress_tree({"g": g}, {"g": torch.zeros(g.shape, device=dev)})
+        q_bytes += q8["g"][0].numel() + 4 * q8["g"][1].numel()
+        del q8, err
+    sync()
+    whole_s = time.perf_counter() - t0
+    big = next(g for g in flat if g.numel() >= COMPRESS_SLICE)
+    part = big.reshape(-1)[:COMPRESS_SLICE].contiguous()
+    e = torch.randn(part.shape, generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev) * 1e-3
+    (qd, ed), slice_s = timed(compress_tree, {"g": part}, {"g": e})
+    qc, ec = compress_tree({"g": part.cpu()}, {"g": e.cpu()})
+    same = (torch.equal(qd["g"][0].cpu(), qc["g"][0]) and torch.equal(qd["g"][1].cpu(), qc["g"][1])
+            and torch.equal(ed["g"].cpu(), ec["g"]))
+    one_rank_mesh(dev)  # the world of one
+    _, psum_first_s = timed(compressed_psum, {"g": part}, {"g": e})  # NCCL's setup
+    (red, _), psum_s = timed(compressed_psum, {"g": part}, {"g": e})
+    psum_ok = torch.equal(red["g"], _dequant(qd["g"][0], qd["g"][1], part.shape, torch.float32))
+    rec["13c"] = {"values": n, "leaves": len(flat), "s": whole_s, "wire_gb": q_bytes / 1e9,
+                  "slice": COMPRESS_SLICE, "slice_s": slice_s, "bit_identical_to_cpu": same,
+                  "psum_first_s": psum_first_s, "psum_s": psum_s,
+                  "psum_equals_dequant": psum_ok}
+    log(f"phase 13c: compress_tree over starcoder2-3b's gradient tree ({n} values in "
+        f"{len(flat)} leaves, a leaf at a time) {whole_s:.3f} s, int8 payload + scales "
+        f"{q_bytes / 1e9:.2f} GB; a slice of {COMPRESS_SLICE} values bit-identical to the CPU "
+        f"{same} ({slice_s * 1e3:.2f} ms on the card); compressed_psum of that slice on the world "
+        f"of one {psum_s * 1e3:.2f} ms (the first call {psum_first_s * 1e3:.2f} ms), its mean = "
+        f"the dequantized payload {psum_ok}")
+    if not (same and psum_ok):
+        raise AssertionError(f"13c: {rec['13c']}")
+
+
+def phase13d_elastic_restore(dev, preset, ckpt_dir, rec):
+    """13d: the newest checkpoint of train() at ``preset`` restored onto the
+    (1, 1) mesh with ``shardings=`` (param_specs and opt_state_specs) and
+    unsharded: every leaf equal."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.optim.adamw import opt_state_specs
+    from repro_torch.tree import tree_leaves
+
+    params = tf.init_params(preset, torch.Generator(device=dev).manual_seed(0))
+    opt = OptConfig(lr=3e-4)
+    template = {"params": params, "opt": adamw_init(params, opt)}
+    mesh = one_rank_mesh(dev)
+    specs = tf.param_specs(preset, mesh)
+    mgr = CheckpointManager(ckpt_dir)
+    (step, sharded), s = timed(mgr.restore, template, shardings={
+        "params": specs, "opt": opt_state_specs(specs, opt, mesh)})
+    _, plain = mgr.restore(template)
+    a, b = tree_leaves(sharded), tree_leaves(plain)
+    same = len(a) == len(b) and all(torch.equal(x.to_local(), y) for x, y in zip(a, b))
+    rec["13d"] = {"step": step, "leaves": len(a), "s": s, "equal": same}
+    log(f"phase 13d: train()'s step-{step} checkpoint at {preset.name} restored onto the (1, 1) "
+        f"mesh with shardings= in {s:.3f} s: {len(a)} DTensor leaves, equal to the unsharded "
+        f"restore {same}")
+    if not same:
+        raise AssertionError("13d: the sharded restore differs")
+
+
+def phase13b_sharded_vs_plain(dev, what, step, params, opt_state, batch, pspecs, ospecs,
+                              ispecs, lr):
+    """13b: one unsharded step from a cell's current state, the state
+    restored from copies on the card, one step on DTensor views through
+    the cell's specs on a (1, 1) mesh; loss and parameters against the
+    unsharded step's (the card's scatter-adds sum in atomic order: loss
+    rtol 1e-5, parameters within ``params_vs``' one-step bound)."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    leaves, moments = tree_leaves(params), tree_leaves(opt_state["mu"])
+    p0 = [t.clone() for t in leaves]
+    m0 = [t.clone() for t in moments]
+    c0 = opt_state["count"].clone()
+    (_, _, loss_u), s_u = timed(step, params, opt_state, batch)
+    p1 = [t.to("cpu", copy=True) for t in leaves]
+    with torch.no_grad():
+        for t, c in zip(leaves + moments, p0 + m0):
+            t.copy_(c)
+    opt_state["count"] = c0
+    del p0, m0
+    mesh = one_rank_mesh(dev)
+    dbatch = {k: ispecs(mesh)[k].sharding.distribute(v) for k, v in batch.items()}
+    torch.cuda.reset_peak_memory_stats()
+    (_, dstate, loss), s = timed(step, wrap(params, pspecs(mesh)),
+                                 wrap(opt_state, ospecs(mesh)), dbatch)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    opt_state["count"] = dstate["count"].to_local()
+    same, worst, off = params_vs(dev, leaves, p1, lr=lr)
+    loss_err = abs(float(loss) - float(loss_u)) / abs(float(loss_u))
+    out = {"loss": float(loss), "loss_unsharded": float(loss_u), "loss_rel_err": loss_err,
+           "params_bit_identical": same, "params_max_err": worst, "params_off_share": off,
+           "s": s, "s_unsharded": s_u, "peak_gb": peak}
+    log(f"phase 13b: {what} on the (1, 1) mesh: loss {float(loss):.6f} against the unsharded "
+        f"{float(loss_u):.6f} (rel {loss_err:.2e}, at most 1e-5); parameters bit-identical "
+        f"{same}, largest diff {worst:.2e} of max, {off:.2e} of them off 1e-5 (at most 2·lr and "
+        f"1e-3); sharded step {s:.3f} s against {s_u:.3f} s unsharded; peak {peak:.2f} GB")
+    if loss_err > 1e-5:
+        raise AssertionError(f"13b {what}: {out}")
+    return out
+
+
+def phase13e_state_table(dev):
+    """13e: per-device bytes of the parameters and optimizer state
+    (``shard_shape`` of ``param_specs`` and ``opt_state_specs``, host
+    arithmetic only) of every train cell of the registry on the two
+    production meshes, beside this card's memory.  State only: the
+    activations and the fit verdict wait for the dry-run slice."""
+    import math as _m
+
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_arch
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.models import gnn, recsys, transformer
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.adamw import opt_state_specs
+    from repro_torch.tree import tree_leaves
+
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+
+    def gb(tree):
+        out = 0
+        for s in tree_leaves(tree):
+            parts = [s.q, s.scale] if hasattr(s, "q") else [s]
+            for p in parts:
+                item = torch.empty((), dtype=p.dtype).element_size()
+                out += _m.prod(p.sharding.shard_shape(p.shape)) * item
+        return out / 1e9
+
+    rows = []
+    for arch in ARCH_IDS:
+        spec = get_arch(arch)
+        cfg = spec.model
+        for shape in spec.shapes:
+            if shape.kind not in ("train", "gnn_full", "gnn_sampled", "gnn_batched",
+                                  "recsys_train"):
+                continue
+            for dims, axes in PROD_MESHES:
+                mesh = AbstractMesh(dims, axes)
+                if spec.family == "lm":
+                    ps = transformer.param_specs(cfg, mesh)
+                    opt = OptConfig(quantized=cfg.params_count() > 1e11)
+                elif spec.family == "gnn":
+                    ps = gnn.param_specs(cfg, gnn.effective_graph(shape)[2], mesh)
+                    opt = OptConfig()
+                else:
+                    ps = recsys.param_specs(cfg, mesh)
+                    opt = OptConfig()
+                p_gb, o_gb = gb(ps), gb(opt_state_specs(ps, opt, mesh))
+                rows.append({"arch": arch, "shape": shape.name, "mesh": list(dims),
+                             "params_gb": p_gb, "opt_gb": o_gb, "state_gb": p_gb + o_gb,
+                             "quantized_moments": opt.quantized,
+                             "share_of_card": (p_gb + o_gb) / card_gb})
+    log(f"phase 13e: per-device parameters + optimizer state from shard_shape (host "
+        f"arithmetic; STATE ONLY: activations and the fit verdict wait for the dry-run slice; "
+        f"the port's sharded step also holds one layer gathered whole over the ZeRO axes and "
+        f"'model' at a time, and every rank of 'model' computes each layer whole, so its "
+        f"FLOPs per device are 'model' times a tensor-parallel step's), beside this card's "
+        f"{card_gb:.1f} GB:")
+    for r in rows:
+        log(f"phase 13e:   {r['arch']} x {r['shape']} on {tuple(r['mesh'])}: params "
+            f"{r['params_gb']:.4f} GB + optimizer {r['opt_gb']:.4f} GB"
+            f"{' (8-bit moments)' if r['quantized_moments'] else ''} = {r['state_gb']:.4f} GB, "
+            f"{r['share_of_card']:.4f} of the card")
+    return {"card_gb": card_gb, "rows": rows}
+
+
 # ---- phase 11: the trainer (src/repro_torch/launch/train.py and the LM stack)
 
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak (data sheet, 700 W)
@@ -2540,8 +2875,11 @@ def full_width_training(dev, cfg, rec):
     step = tf.make_train_step(cfg, opt_cfg)
     stream = TokenStream(cfg.vocab, TRAIN_B, TRAIN_S, seed=0)
     tok = torch.from_numpy(stream.batch_at(0)).to(dev)
-    rec["repeated"] = [train_step_row(step, params, opt_state, tok, cfg,
-                                      f"repeated batch, step {i}") for i in range(3)]
+    # step 0 runs inside 13a, which holds the sharded step against it
+    rec["repeated"] = [phase13a_sharded_lm(dev, cfg, params, opt_state, step, tok, opt_cfg,
+                                           rec)]
+    rec["repeated"] += [train_step_row(step, params, opt_state, tok, cfg,
+                                       f"repeated batch, step {i}") for i in (1, 2)]
     losses = [r["loss"] for r in rec["repeated"]]
     if not all(b < a for a, b in zip(losses, losses[1:])):
         raise AssertionError(f"the loss on one repeated batch does not fall: {losses}")
@@ -2552,6 +2890,7 @@ def full_width_training(dev, cfg, rec):
     with torch.no_grad():
         _, fwd_s = timed(tf.loss_fn, cfg, params, tok)
     (_, grads), fb_s = timed(tf.loss_and_grads, cfg, params, tok, stacked=False)
+    phase13c_compress(dev, grads, rec)
     _, upd_s = timed(adamw_update, params, grads, opt_state, opt_cfg)
     del grads
     step_s = rec["stream"][-1]["s"]
@@ -2565,6 +2904,9 @@ def full_width_training(dev, cfg, rec):
         f"{fb_s - 2 * fwd_s:.3f} s), AdamW update {upd_s:.3f} s; under the profiler device "
         f"busy {prof['busy_share']:.3f} ({prof['device_ms']:.1f} device ms); top device time "
         f"(ms): {json.dumps(prof['top_device_ms'])}")
+    log(f"phase 13a: the sharded step {rec['13a']['s']:.3f} s against phase 11's unsharded "
+        f"steps: repeated batch {[round(r['s'], 3) for r in rec['repeated']]} s, TokenStream "
+        f"{[round(r['s'], 3) for r in rec['stream']]} s")
     long_tok = torch.from_numpy(TokenStream(cfg.vocab, 1, LONG_S, seed=0).batch_at(0)).to(dev)
     rec["long"] = train_step_row(step, params, opt_state, long_tok, cfg,
                                  f"one step at train_4k's sequence length, {LONG_S // 1024} KV "
@@ -2652,6 +2994,7 @@ def train_crash_resume(dev, preset, rec):
                                           log=logs.append)
         ckpt_bytes = sum(f.stat().st_size for f in Path(d, "ref").rglob("state.npz"))
         n_ckpts = len(CheckpointManager(f"{d}/ref").steps())
+        phase13d_elastic_restore(dev, preset, f"{d}/ref", rec)
     rec["train"] = {"params": preset.params_count(), "ref_s": ref_s, "resume_s": resume_s,
                     "losses_ref": ref, "losses_resumed": resumed,
                     "ckpt_gb": ckpt_bytes / n_ckpts / 1e9}
@@ -2841,9 +3184,10 @@ def model_steps(step, params, opt_state, batch, what, n=3):
     return rows
 
 
-def gnn_cell(dev, arch, shape, batch_fn, what):
+def gnn_cell(dev, arch, shape, batch_fn, what, sharded=False):
     """A GNN config at full width (f32, as configured) on one cell: init on
-    the card from a seed, three AdamW steps on one batch."""
+    the card from a seed, three AdamW steps on one batch; with ``sharded``,
+    phase 13b's sharded step against a fourth."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -2861,10 +3205,20 @@ def gnn_cell(dev, arch, shape, batch_fn, what):
     log(f"phase 12: {what}: {cfg.name} ({cfg.n_layers} layers, d {cfg.d_hidden}, "
         f"{n_params} params, {cfg.dtype}) on {shape.name} (N {N}, E {E}, F {F}); inputs on "
         f"the card {data_s:.3f} s")
-    rows = model_steps(gnn.make_train_step(cfg, shape, opt), params, adamw_init(params, opt),
-                       batch, what)
-    return {"arch": arch, "shape": shape.name, "N": N, "E": E, "F": F, "params": n_params,
-            "data_s": data_s, "steps": rows}
+    step = gnn.make_train_step(cfg, shape, opt, dp_axes=("data",))
+    opt_state = adamw_init(params, opt)
+    rows = model_steps(step, params, opt_state, batch, what)
+    out = {"arch": arch, "shape": shape.name, "N": N, "E": E, "F": F, "params": n_params,
+           "data_s": data_s, "steps": rows}
+    if sharded:
+        from repro_torch.optim.adamw import opt_state_specs
+
+        out["13b"] = phase13b_sharded_vs_plain(
+            dev, f"{arch} x {shape.name}", step, params, opt_state, batch,
+            lambda m: gnn.param_specs(cfg, F, m),
+            lambda m: opt_state_specs(gnn.param_specs(cfg, F, m), opt, m),
+            lambda m: gnn.input_specs(cfg, shape, m), GNN_LR)
+    return out
 
 
 def reddit_graph_job(out_dir):
@@ -2990,7 +3344,7 @@ def phase12d_ogb_products(dev):
 
     shape = next(s for s in get_arch("graphsage-reddit").shapes if s.name == "ogb_products")
     return gnn_cell(dev, "graphsage-reddit", shape, lambda c, s, g: gnn_batch(c, s, g, dev),
-                    "12d graphsage-reddit x ogb_products (full graph)")
+                    "12d graphsage-reddit x ogb_products (full graph)", sharded=True)
 
 
 def phase12e_steiner_sampled(dev, h, root, steps=8, n_seeds=12):
@@ -3116,8 +3470,17 @@ def phase12f_mind(dev):
     # train_batch: three steps on one batch (the in-batch logits are (B, B) f32)
     opt = OptConfig(lr=MIND_LR)
     step = recsys.make_step(cfg, shapes["train_batch"], opt)
-    rec["train_batch"] = model_steps(step, params, adamw_init(params, opt), on_card(train_np),
+    opt_state, train_batch = adamw_init(params, opt), on_card(train_np)
+    rec["train_batch"] = model_steps(step, params, opt_state, train_batch,
                                      f"12f mind x train_batch (B {train_b})")
+    from repro_torch.optim.adamw import opt_state_specs
+
+    rec["13b"] = phase13b_sharded_vs_plain(
+        dev, f"mind x train_batch (B {train_b})", step, params, opt_state, train_batch,
+        lambda m: recsys.param_specs(cfg, m),
+        lambda m: opt_state_specs(recsys.param_specs(cfg, m), opt, m),
+        lambda m: recsys.input_specs(cfg, shapes["train_batch"], m), MIND_LR)
+    del opt_state, train_batch
     # serve_p99: B 512, 256 candidates a request, 120 calls
     serve = recsys.make_step(cfg, shapes["serve_p99"])
     sb = on_card({k: v[:shapes["serve_p99"].batch] for k, v in train_np.items()
@@ -3285,6 +3648,8 @@ def main(argv=None) -> int:
                     help="frontier_size of the top-K kernel schedule in phase 9")
     ap.add_argument("--only-models", action="store_true",
                     help="a rehearsal of phase 12: phases 1, 6 and 12 only, no result line")
+    ap.add_argument("--trainer", action="store_true",
+                    help="with --only-models: phase 11 (and 13a, 13c, 13d inside it) too")
     args = ap.parse_args(argv)
 
     import torch
@@ -3328,15 +3693,22 @@ def main(argv=None) -> int:
         seconds[phase] = round(time.perf_counter() - t_start - sum(seconds.values()), 1)
 
     done("1-2")
-    if args.only_models:  # phase 6's handle, then phase 12
+    if args.only_models:  # phase 6's handle, then phases 11 (with --trainer), 12, 13e
         graph_job = HostJob(reddit_graph_job)
         try:
             _, h, _, _, _ = phase6_full_width(dev, args.scale, args.seeds, tally)
             done("6")
+            if args.trainer:
+                trainer_rec, _ = phase11_trainer(dev, root)
+                done("11")
             models_rec, _ = phase12_models(dev, [h], root, graph_job)
         finally:
             graph_job.stop()
         done("12")
+        models_rec["state_per_device"] = phase13e_state_table(dev)
+        if args.trainer:
+            models_rec["trainer"] = trainer_rec
+        done("13e")
         log(f"script {time.perf_counter() - t_start:.1f} s after the imports; by phase "
             f"{json.dumps(seconds)}")
         if args.json:
@@ -3417,8 +3789,11 @@ def main(argv=None) -> int:
     finally:
         graph_job.stop()
     done("12")
+    # ---- phase 13e (13a, 13c and 13d ran inside phase 11, 13b inside phase 12)
+    state_rec = phase13e_state_table(dev)
+    done("13e")
 
-    # ---- phase 13
+    # ---- the launches by path and the kernels line
     by_path = {"minplus_call (pallas, phase 6)": rec["launches_per_solve"] * 4,
                "minplus_call (lanes, phase 7)": lane_launches,
                "minplus_blocked_call (pallas, phase 8)": blocked_launches,
@@ -3474,11 +3849,10 @@ def main(argv=None) -> int:
              "schedules_full_width": sched_rec, "scale16_lane_launches": lanes16,
              "scale16_store_launches": store16, "store_full_width": store_rec,
              "mesh": mesh_rec, "obs": obs_rec, "trainer": trainer_rec, "models": models_rec,
-             "launches_by_path": by_path,
+             "state_per_device": state_rec, "launches_by_path": by_path,
              "kernel_times": times, "kernels": kernels, "seconds": total_s}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
-    # ---- phase 14
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

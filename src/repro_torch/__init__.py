@@ -31,11 +31,17 @@ models/    the LM family: RMSNorm, interleaved RoPE, chunked online-softmax
            the transformer over stacked layer parameters with its train,
            decode and prefill steps; the GNN family (GraphSAGE, GatedGCN,
            SchNet, GraphCast) and the MIND recommender
-optim/     AdamW with fp32 or 8-bit block-quantized moments, updated in place
+optim/     AdamW with fp32 or 8-bit block-quantized moments, updated in place,
+           and ``opt_state_specs``
+distributed/ sharding rules over DTensor (``P``, ``sanitize_spec``,
+           ``named_sharding``, ``constrain``, ``local_call``) and int8
+           gradient compression with error feedback
 checkpoint/ npz checkpoints in the reference's format (either package
-           restores the other's), async and rolling
+           restores the other's), async and rolling, with elastic restore
+           onto a mesh (``shardings=``)
 launch/    the fault-tolerant training loop ``python -m
-           repro_torch.launch.train``
+           repro_torch.launch.train`` and the production and test
+           ``DeviceMesh``es (``launch/mesh.py``)
 tree       nested dicts of tensors (the reference's pytrees)
 convert    numpy arrays of the JAX package -> this package's objects (graphs,
            Voronoi state, LM, GNN and MIND parameters, optimizer state)
@@ -48,7 +54,10 @@ Prim or Borůvka, over an in-memory graph or a graph store with its delta
 log; the mesh backends run the paper's distributed engine over
 ``torch.distributed``.  The model stacks have no kernel of their own: the
 reference's transformer, GNNs and MIND are plain XLA, and their port
-plain PyTorch.
+plain PyTorch.  Their train steps also run SPMD on a ``DeviceMesh`` of
+``torch.distributed`` ranks: parameters, moments and inputs as DTensors
+placed by each family's specs, one rank a card over NCCL or a CPU process
+over gloo.
 """
 
 __version__ = "0.1.0"

@@ -13,7 +13,13 @@ layout, so that either package restores the other's checkpoints:
   * a manifest written last guards torn restores; old checkpoints roll off
     by ``keep``; ``latest_step`` scans for the newest complete one.
 Restore loads host arrays into the structure of a template and places them
-on the caller's device.
+on the caller's device, or, with ``shardings=`` (elastic restore onto the
+current mesh), each rank slices its own shard of each host array and moves
+only that to its device as a DTensor.  The file stays mesh-agnostic: a
+DTensor leaf is saved as its full array, gathered block by block to rank
+0's host (every rank takes part; no device holds the whole leaf); rank 0
+writes, synchronously, and every rank waits for the file before it goes on,
+so no rank can restore a checkpoint that is still being written.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import gather_to_host, is_dtensor
 
 # dtypes numpy cannot hold, stored as their bits: torch and numpy views
 _BITS = {torch.bfloat16: (torch.int16, np.int16)}
@@ -71,9 +79,14 @@ def _rebuild(template: Any, fn, prefix: str = "") -> Any:
 
 def _to_native(t) -> np.ndarray:
     """A tensor as the numpy array the npz holds (a copy: the tensor may be
-    updated in place while it is written): bf16 → raw uint8 bytes."""
+    updated in place while it is written): bf16 → raw uint8 bytes.  A
+    DTensor is gathered to rank 0's host: None on the other ranks."""
     if not isinstance(t, torch.Tensor):
         return np.asarray(t)
+    if is_dtensor(t):
+        t = gather_to_host(t.detach())
+        if t is None:
+            return None
     t = t.detach().to("cpu", copy=True)
     if t.dtype in _BITS:
         a = np.atleast_1d(t.view(_BITS[t.dtype][0]).numpy())
@@ -92,24 +105,61 @@ def _from_native(a: np.ndarray, want: torch.dtype) -> torch.Tensor:
 
 
 def save_pytree(tree: Any, path: str | Path) -> None:
-    """Atomic synchronous save of a tree to one .npz."""
+    """Atomic synchronous save of a tree to one .npz (DTensor leaves as
+    their full arrays: every rank calls it, rank 0 writes, and every rank
+    returns once the file is there)."""
     path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    arrays = {k: _to_native(v) for k, v in _flatten_with_paths(tree).items()}
-    tmp = path.with_suffix(".tmp.npz")
-    np.savez(tmp, **arrays)
-    os.replace(tmp, path)
+    flat = _flatten_with_paths(tree)
+    arrays = {k: _to_native(v) for k, v in flat.items()}
+    sharded = _sharded(flat)
+    if not sharded or _writes():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(".tmp.npz")
+        np.savez(tmp, **arrays)
+        os.replace(tmp, path)
+    if sharded:
+        _barrier()
 
 
-def load_pytree(template: Any, path: str | Path, *, device=None) -> Any:
+def _sharded(flat: dict) -> bool:
+    return any(is_dtensor(t) for t in flat.values())
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    dist.barrier()
+
+
+def load_pytree(template: Any, path: str | Path, *, device=None, shardings: Any = None) -> Any:
     """Restores into the structure (and leaf dtypes) of ``template``, on
-    ``device`` (default: each template leaf's device)."""
+    ``device`` (default: each template leaf's device).
+
+    ``shardings``: optional tree of ``NamedSharding``s (or ``param_specs``'
+    structs) in the template's structure: elastic restore onto their mesh,
+    each leaf a DTensor of which this rank holds only its own shard."""
     with np.load(Path(path), allow_pickle=False) as z:
-        def leaf(key, t):
-            out = _from_native(z[key], t.dtype)
-            return out.to(t.device if device is None else device)
+        if shardings is not None:
+            flat_sh = _flatten_with_paths(shardings)
+
+            def leaf(key, t):
+                sh = flat_sh[key]
+                sh = getattr(sh, "sharding", sh)
+                return sh.distribute(_from_native(z[key], t.dtype), device=device)
+        else:
+            def leaf(key, t):
+                out = _from_native(z[key], t.dtype)
+                return out.to(t.device if device is None else device)
 
         return _rebuild(template, leaf)
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a process group,
+    or a process with none."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 class CheckpointManager:
@@ -131,10 +181,16 @@ class CheckpointManager:
         return self.dir / f"step_{step:010d}"
 
     def save(self, step: int, state: Any, *, blocking: bool = False) -> None:
+        """Snapshots ``state`` to the host and writes it on a thread; a state
+        of DTensors is written by rank 0 before every rank returns."""
         # snapshot to host BEFORE handing to the writer thread: the next
         # step updates the tensors in place
         host = _rebuild(state, lambda _, t: _to_native(t))
         self.wait()
+        sharded = _sharded(_flatten_with_paths(state))
+        if sharded and not _writes():
+            _barrier()  # until rank 0 has written the gathered arrays
+            return
 
         def write():
             d = self._step_dir(step)
@@ -148,8 +204,10 @@ class CheckpointManager:
 
         self._thread = threading.Thread(target=write, daemon=True)
         self._thread.start()
-        if blocking:
+        if blocking or sharded:
             self.wait()
+        if sharded:
+            _barrier()
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -180,9 +238,11 @@ class CheckpointManager:
         steps = self.steps()
         return max(steps) if steps else None
 
-    def restore(self, template: Any, *, step: Optional[int] = None, device=None):
+    def restore(self, template: Any, *, step: Optional[int] = None, device=None,
+                shardings: Any = None):
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None
-        state = load_pytree(template, self._step_dir(step) / "state.npz", device=device)
+        state = load_pytree(template, self._step_dir(step) / "state.npz", device=device,
+                            shardings=shardings)
         return step, state

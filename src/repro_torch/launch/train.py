@@ -77,7 +77,7 @@ def train(cfg: TrainConfig, *, log=print):
         start_step = restored_step + 1
         log(f"[train] resumed from checkpoint at step {restored_step}")
 
-    step_fn = tf_mod.make_train_step(model_cfg, opt_cfg)
+    step_fn = tf_mod.make_train_step(model_cfg, opt_cfg, dp_axes=())
     stream = TokenStream(model_cfg.vocab, cfg.batch, cfg.seq_len, seed=cfg.seed)
 
     losses = []

@@ -20,9 +20,17 @@ are padded and static:
 Every layer is recomputed in the backward pass
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).  Edge and
 node ids must lie in range: the card's indexing asserts where the
-reference's gather would clamp.  The reference's sharding (``param_specs``,
-``make_specs``, ``input_specs`` and the ``_cons`` constraints) waits for a
-port of ``repro.distributed``.
+reference's gather would clamp.
+
+Distribution (``param_specs``, ``input_specs``, ``make_specs``): edges
+sharded over every mesh axis, node features over the dp axes' rows with
+the feature dim over "model" where divisible.  On DTensors with
+``dp_axes`` the full-graph GraphSAGE and GatedGCN steps run SPMD: each
+rank gathers the node table, computes the messages of its edge shard and
+scatters them into partial node sums, which the node constraint reduces
+onto the row shards; the node updates run on each rank's rows.  (The
+sharded SchNet and GraphCast steps are not ported: their constraints are
+no-ops on plain tensors and they refuse DTensors.)
 """
 
 from __future__ import annotations
@@ -35,6 +43,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import GNNConfig, ShapeSpec
+from repro_torch.distributed.sharding import (P, NamedSharding, ShapeDtypeStruct, constrain,
+                                              full, is_dtensor, like, local_call,
+                                              named_sharding)
 from repro_torch.optim import adamw_update
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -86,15 +97,14 @@ def _remat(fn, *args):
 # ----------------------------------------------------------------------------
 
 
-def param_defs(cfg: GNNConfig, d_feat: int) -> Dict[str, tuple]:
-    """Flat {path: (shape, dtype)}: the reference's table without its
-    partition specs."""
+def param_table(cfg: GNNConfig, d_feat: int) -> Dict[str, tuple]:
+    """Flat {path: (shape, dtype, spec)}."""
     dt = cfg.torch_dtype
     h = cfg.d_hidden
     defs: Dict[str, tuple] = {}
 
-    def lin(name, din, dout):
-        defs[name] = ((din, dout), dt)
+    def lin(name, din, dout, spec=(None, "model")):
+        defs[name] = ((din, dout), dt, spec)
 
     if cfg.kind == "sage":
         din = d_feat
@@ -102,31 +112,31 @@ def param_defs(cfg: GNNConfig, d_feat: int) -> Dict[str, tuple]:
             lin(f"l{i}.self", din, h)
             lin(f"l{i}.nbr", din, h)
             din = h
-        lin("out", h, cfg.n_classes)
+        lin("out", h, cfg.n_classes, (None, None))
     elif cfg.kind == "gatedgcn":
         lin("enc", d_feat, h)
-        lin("enc_e", 1, h)
+        lin("enc_e", 1, h, (None, None))
         for i in range(cfg.n_layers):
             for nm in ("A", "B", "D", "E", "U", "V"):
                 lin(f"l{i}.{nm}", h, h)
-            defs[f"l{i}.ln_n"] = ((h,), dt)
-            defs[f"l{i}.ln_e"] = ((h,), dt)
-        lin("out", h, cfg.n_classes)
+            defs[f"l{i}.ln_n"] = ((h,), dt, (None,))
+            defs[f"l{i}.ln_e"] = ((h,), dt, (None,))
+        lin("out", h, cfg.n_classes, (None, None))
     elif cfg.kind == "schnet":
-        lin("embed", d_feat, h)
+        lin("embed", d_feat, h, (None, None))
         for i in range(cfg.n_interactions):
-            lin(f"i{i}.filter1", cfg.rbf, h)
+            lin(f"i{i}.filter1", cfg.rbf, h, (None, None))
             lin(f"i{i}.filter2", h, h)
             lin(f"i{i}.in", h, h)
             lin(f"i{i}.out1", h, h)
             lin(f"i{i}.out2", h, h)
         lin("head1", h, h)
-        lin("head2", h, 1)
+        lin("head2", h, 1, (None, None))
     elif cfg.kind == "graphcast":
         lin("enc_grid", d_feat, h)
-        lin("enc_g2m", 4, h)
-        lin("enc_mesh", 4, h)
-        lin("enc_m2g", 4, h)
+        lin("enc_g2m", 4, h, (None, None))
+        lin("enc_mesh", 4, h, (None, None))
+        lin("enc_m2g", 4, h, (None, None))
         for i in range(cfg.n_layers):
             lin(f"p{i}.edge1", 3 * h, h)
             lin(f"p{i}.edge2", h, h)
@@ -137,10 +147,15 @@ def param_defs(cfg: GNNConfig, d_feat: int) -> Dict[str, tuple]:
         lin("g2m_node", 2 * h, h)
         lin("m2g_node", 2 * h, h)
         lin("dec1", h, h)
-        lin("dec2", h, cfg.n_vars)
+        lin("dec2", h, cfg.n_vars, (None, None))
     else:
         raise ValueError(cfg.kind)
     return defs
+
+
+def param_defs(cfg: GNNConfig, d_feat: int) -> Dict[str, tuple]:
+    """Flat {path: (shape, dtype)} (``param_table`` without specs)."""
+    return {k: (shape, dt) for k, (shape, dt, _) in param_table(cfg, d_feat).items()}
 
 
 def _nest(flat):
@@ -152,6 +167,13 @@ def _nest(flat):
             cur = cur.setdefault(p, {})
         cur[parts[-1]] = v
     return out
+
+
+def param_specs(cfg: GNNConfig, d_feat: int, mesh):
+    """Nested {path: ShapeDtypeStruct} with each weight's sharding."""
+    flat = {k: ShapeDtypeStruct(shape, dt, named_sharding(mesh, shape, *spec))
+            for k, (shape, dt, spec) in param_table(cfg, d_feat).items()}
+    return _nest(flat)
 
 
 def init_params(cfg: GNNConfig, d_feat: int, generator: torch.Generator, *, device=None):
@@ -186,19 +208,71 @@ def softplus(x):
     return torch.logaddexp(x, x.new_zeros(()))
 
 
-def sage_forward_full(cfg, params, x, edges):
-    """Full-graph GraphSAGE (mean aggregator)."""
+def _cons(x, spec):
+    """Sharding constraint; skipped when spec is None (and a no-op on a
+    plain tensor)."""
+    if spec is None:
+        return x
+    return constrain(x, spec)
+
+
+def make_specs(dp_axes, h):
+    """(node_spec, edge_spec) for message passing.
+
+    Edge tensors: rows over EVERY mesh axis (edge MLPs contract the full
+    feature dim anyway).  Node tensors: rows over dp, features over "model"
+    when divisible (2D-SpMV), else replicated (gatedgcn's 70)."""
+    if not dp_axes:
+        return None, None
+    espec = P((*dp_axes, "model"), None)
+    nspec = P(dp_axes, "model") if h % 16 == 0 else P(dp_axes, None)
+    return nspec, espec
+
+
+def _check_dp(dp_axes, *xs):
+    if any(is_dtensor(x) for x in xs) and not dp_axes:
+        raise ValueError("DTensor inputs need dp_axes (the batch's mesh axes)")
+
+
+def _layouts(dp_axes, h):
+    """(node constraint, edge constraint, node rows, edge rows, the edge
+    axes) of ``local_call``; the constraints None without ``dp_axes``."""
+    nspec, espec = make_specs(dp_axes, h)
+    eax = (*dp_axes, "model")
+    return nspec, espec, P(dp_axes, None), P(eax, None), eax
+
+
+def sage_forward_full(cfg, params, x, edges, dp_axes=()):
+    """Full-graph GraphSAGE (mean aggregator).
+
+    On DTensors, per layer, each rank's edge shard gathers its sources
+    from the whole node table (no split of a gather by arbitrary ids: the
+    table is gathered) and scatters partial sums into every row; the node
+    constraint reduces them onto the row shards."""
+    _check_dp(dp_axes, x, edges)
     n = x.shape[0]
-    src, dst = edges[:, 0], edges[:, 1]
+    nspec, _, rows, erows, eax = _layouts(dp_axes, cfg.d_hidden)
+    rep = P()
+
+    def messages(h, e):
+        msg = _gather(h, e[:, 0])
+        s = scatter_sum(msg, e[:, 1], n)
+        c = torch.bincount(e[:, 1], minlength=n).to(msg.dtype)[:, None]  # exact counts
+        return s, c
+
+    def node(h, s, c, p):
+        nbr = s / torch.clamp(c, min=1.0)
+        return _l2_normalize(F.relu(h @ p["self"] + nbr @ p["nbr"]))
 
     def layer(h, p):
-        nbr = seg_mean(_gather(h, src), dst, n)
-        return _l2_normalize(F.relu(h @ p["self"] + nbr @ p["nbr"]))
+        s, c = local_call(messages, (h, edges), (rep, erows), (rep, rep), partial=eax)
+        h = local_call(node, (h, s, c, p), (rows, rows, rows, rep), rows)
+        return _cons(h, nspec)
 
     h = x
     for i in range(cfg.n_layers):
         h = _remat(layer, h, params[f"l{i}"])
-    return h @ params["out"]
+    return local_call(lambda h, w: h @ w, (h, params["out"]), (rows, rep), rows)
 
 
 def sage_forward_sampled(cfg, params, feats: Tuple[torch.Tensor, ...]):
@@ -224,30 +298,45 @@ def _ln(x, scale, eps=1e-5):
     return (x - mu) * torch.rsqrt(var + eps) * scale
 
 
-def gatedgcn_forward(cfg, params, x, edges, ew):
-    """GatedGCN [arXiv:2003.00982]: edge-gated mean aggregation."""
-    n = x.shape[0]
-    src, dst = edges[:, 0], edges[:, 1]
-    h = x @ params["enc"]
-    e = ew[:, None] @ params["enc_e"]
+def gatedgcn_forward(cfg, params, x, edges, ew, dp_axes=()):
+    """GatedGCN [arXiv:2003.00982]: edge-gated mean aggregation.
 
-    def layer(h, e, p):
-        hs = _gather(h, src)
-        hd = _gather(h, dst)
+    On DTensors the edge update, gate and messages run on each rank's edge
+    shard (the node table gathered), the gate and message sums are reduced
+    onto the node rows, the node update runs on each rank's rows."""
+    _check_dp(dp_axes, x, edges, ew)
+    n = x.shape[0]
+    nspec, espec, rows, erows, eax = _layouts(dp_axes, cfg.d_hidden)
+    rep = P()
+    h = _cons(local_call(lambda x, w: x @ w, (x, params["enc"]), (rows, rep), rows), nspec)
+    e = _cons(local_call(lambda ew, w: ew[:, None] @ w, (ew, params["enc_e"]),
+                         (P(eax), rep), erows), espec)
+
+    def edge(h, e, ed, p):
+        hs = _gather(h, ed[:, 0])
+        hd = _gather(h, ed[:, 1])
         eh = e @ p["D"] + hs @ p["E"] + hd @ p["V"]
         e_new = e + F.relu(_ln(eh, p["ln_e"]))
         gate = torch.sigmoid(e_new)
         msg = gate * (hs @ p["B"])
-        den = scatter_sum(gate, dst, n) + 1e-6
-        agg = scatter_sum(msg, dst, n) / den
-        h_new = h + F.relu(_ln(h @ p["A"] + agg @ p["U"], p["ln_n"]))
         # the bf16 edge-feature carry of the reference: a rounding step of
         # the model, its gradient rounded through the same two casts
-        return h_new, e_new.to(torch.bfloat16).to(e.dtype)
+        return (scatter_sum(gate, ed[:, 1], n), scatter_sum(msg, ed[:, 1], n),
+                e_new.to(torch.bfloat16).to(e.dtype))
+
+    def node(h, den, agg, p):
+        agg = agg / (den + 1e-6)
+        return h + F.relu(_ln(h @ p["A"] + agg @ p["U"], p["ln_n"]))
+
+    def layer(h, e, p):
+        den, agg, e_new = local_call(edge, (h, e, edges, p), (rep, erows, erows, rep),
+                                     (rep, rep, erows), partial=eax)
+        h_new = local_call(node, (h, den, agg, p), (rows, rows, rows, rep), rows)
+        return _cons(h_new, nspec), _cons(e_new, espec)
 
     for i in range(cfg.n_layers):
         h, e = _remat(layer, h, e, params[f"l{i}"])
-    return h @ params["out"]
+    return local_call(lambda h, w: h @ w, (h, params["out"]), (rows, rep), rows)
 
 
 def rbf_centers(cfg, dtype=torch.float32, device=None):
@@ -264,7 +353,13 @@ def rbf_centers(cfg, dtype=torch.float32, device=None):
     return torch.cat([torch.arange(div, dtype=dtype, device=device) * scale, stop.reshape(1)])
 
 
-def schnet_forward(cfg, params, z_feat, pos, edges):
+def _unported(name, *xs):
+    if any(is_dtensor(x) for x in xs):
+        raise NotImplementedError(f"the sharded {name} step is not ported; run it on "
+                                  "plain tensors")
+
+
+def schnet_forward(cfg, params, z_feat, pos, edges, dp_axes=()):
     """SchNet [arXiv:1706.08566]: continuous-filter convolutions.
 
     z_feat: (N, F) atom-type features; pos: (N, 3); edges: (E, 2).  Returns
@@ -272,6 +367,7 @@ def schnet_forward(cfg, params, z_feat, pos, edges):
     (z_feat (G, N, F), pos (G, N, 3)) every molecule shares the edge
     template and the result is (G,): the reference's ``jax.vmap``.
     """
+    _unported("SchNet", z_feat, pos, edges)
     n = z_feat.shape[-2]
     src, dst = edges[:, 0], edges[:, 1]
     h = z_feat @ params["embed"]
@@ -295,12 +391,13 @@ def schnet_forward(cfg, params, z_feat, pos, edges):
     return e_atom.sum(dim=(-2, -1))
 
 
-def graphcast_forward(cfg, params, grid_x, g2m, mesh_e, m2g, n_mesh):
+def graphcast_forward(cfg, params, grid_x, g2m, mesh_e, m2g, n_mesh, dp_axes=()):
     """GraphCast-style encode-process-decode [arXiv:2212.12794].
 
     grid_x: (Ng, F); g2m/m2g/mesh_e: (E?, 2) index pairs + implicit unit
     edge features; n_mesh: mesh node count.  Returns (Ng, n_vars).
     """
+    _unported("GraphCast", grid_x, g2m, mesh_e, m2g)
     ng = grid_x.shape[0]
     h_grid = F.relu(grid_x @ params["enc_grid"])
 
@@ -368,50 +465,113 @@ def effective_graph(shape: ShapeSpec) -> Tuple[int, int, int]:
     return pad(shape.n_nodes), pad(shape.n_edges), shape.d_feat
 
 
-def loss_fn(cfg: GNNConfig, shape: ShapeSpec, params, batch) -> torch.Tensor:
+def _xent_rows(logits, lab):
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return torch.gather(logp, 1, lab.long()[:, None])
+
+
+def loss_fn(cfg: GNNConfig, shape: ShapeSpec, params, batch, dp_axes=()) -> torch.Tensor:
     """The cell's loss: node-classification cross-entropy (SAGE, GatedGCN),
     squared energy error (SchNet), mean squared error (GraphCast)."""
     if cfg.kind == "sage" and shape.kind == "gnn_sampled":
         logits = sage_forward_sampled(cfg, params, batch["feats"])
     elif cfg.kind == "sage":
-        logits = sage_forward_full(cfg, params, batch["x"], batch["edges"])
+        logits = sage_forward_full(cfg, params, batch["x"], batch["edges"], dp_axes)
     elif cfg.kind == "gatedgcn":
-        logits = gatedgcn_forward(cfg, params, batch["x"], batch["edges"], batch["ew"])
+        logits = gatedgcn_forward(cfg, params, batch["x"], batch["edges"], batch["ew"],
+                                  dp_axes)
     elif cfg.kind == "schnet":
         if shape.kind == "gnn_batched":
             e = schnet_forward(cfg, params, batch["z"], batch["pos"], batch["edges_t"])
             return torch.mean(torch.square(e - batch["energy"]))
-        e = schnet_forward(cfg, params, batch["x"], batch["pos"], batch["edges"])
+        e = schnet_forward(cfg, params, batch["x"], batch["pos"], batch["edges"], dp_axes)
         return torch.square(e - batch["energy_sum"])
     elif cfg.kind == "graphcast":
         out = graphcast_forward(cfg, params, batch["x"], batch["g2m"], batch["mesh_e"],
-                                batch["m2g"], n_mesh=batch["x"].shape[0] // 4 + 1)
+                                batch["m2g"], n_mesh=batch["x"].shape[0] // 4 + 1,
+                                dp_axes=dp_axes)
         return torch.mean(torch.square(out - batch["target"]))
     else:
         raise ValueError(cfg.kind)
-    logp = F.log_softmax(logits.float(), dim=-1)
-    lab = batch["labels"].long()
-    return -torch.mean(torch.gather(logp, 1, lab[:, None]))
+    # each rank's rows: its mean, weighted by its share of the nodes (the
+    # whole graph: the mean itself)
+    n = logits.shape[0]
+    part = local_call(lambda lg, lab: -torch.mean(_xent_rows(lg, lab)) * (lab.shape[0] / n),
+                      (logits, batch["labels"]), (P(dp_axes, None), P(dp_axes)), P(),
+                      partial=tuple(dp_axes))
+    return full(part)
 
 
-def loss_and_grads(cfg: GNNConfig, shape: ShapeSpec, params, batch):
+def loss_and_grads(cfg: GNNConfig, shape: ShapeSpec, params, batch, dp_axes=()):
     """(loss, gradients in the params' tree), taken with respect to
-    detached copies of the leaves."""
+    detached copies of the leaves; on DTensors each gradient laid out like
+    its parameter."""
     leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
     with torch.enable_grad():
-        loss = loss_fn(cfg, shape, leaves, batch)
+        loss = loss_fn(cfg, shape, leaves, batch, dp_axes)
         flat = iter(torch.autograd.grad(loss, tree_leaves(leaves)))
-    return loss.detach(), tree_map(lambda _: next(flat), leaves)
+    grads = tree_map(lambda p: like(next(flat), p), leaves)
+    return loss.detach(), grads
 
 
-def make_train_step(cfg: GNNConfig, shape: ShapeSpec, opt_cfg):
+def make_train_step(cfg: GNNConfig, shape: ShapeSpec, opt_cfg, dp_axes=()):
     """``train_step(params, opt_state, batch) -> (params, opt_state, loss)``
     for the given cell: value and gradients, then the port's AdamW, the
     parameters and moments updated in place."""
 
     def train_step(params, opt_state, batch):
-        loss, grads = loss_and_grads(cfg, shape, params, batch)
+        loss, grads = loss_and_grads(cfg, shape, params, batch, dp_axes)
         params, opt_state = adamw_update(params, grads, opt_state, opt_cfg)
         return params, opt_state, loss
 
     return train_step
+
+
+def input_specs(cfg: GNNConfig, shape: ShapeSpec, mesh, dp_axes=("data",)):
+    """Input ShapeDtypeStructs per GNN cell: every array's rows over
+    ``dp_axes``, SchNet's edge template and energy sum replicated."""
+    dt = cfg.torch_dtype
+    rep = NamedSharding(mesh, P())
+
+    def arr(shape_, dtype, sh=None):
+        if sh is None:
+            sh = named_sharding(mesh, shape_, dp_axes, *([None] * (len(shape_) - 1)))
+        return ShapeDtypeStruct(shape_, dtype, sh)
+
+    N, E, F_ = effective_graph(shape)
+    i32 = torch.int32
+    if cfg.kind == "sage" and shape.kind == "gnn_sampled":
+        B = shape.batch_nodes
+        f1, f2 = shape.fanout
+        return {
+            "feats": (arr((B, F_), dt), arr((B * f1, F_), dt), arr((B * f1 * f2, F_), dt)),
+            "labels": arr((B,), i32),
+        }
+    if cfg.kind == "sage":
+        return {"x": arr((N, F_), dt), "edges": arr((E, 2), i32), "labels": arr((N,), i32)}
+    if cfg.kind == "gatedgcn":
+        return {"x": arr((N, F_), dt), "edges": arr((E, 2), i32), "ew": arr((E,), dt),
+                "labels": arr((N,), i32)}
+    if cfg.kind == "schnet":
+        if shape.kind == "gnn_batched":
+            G = shape.graph_batch
+            n1, e1 = shape.n_nodes, shape.n_edges  # per molecule
+            return {
+                "z": arr((G, n1, F_), dt),
+                "pos": arr((G, n1, 3), dt),
+                "edges_t": arr((e1, 2), i32, rep),
+                "energy": arr((G,), dt),
+            }
+        return {"x": arr((N, F_), dt), "pos": arr((N, 3), dt), "edges": arr((E, 2), i32),
+                "energy_sum": arr((), dt, rep)}
+    if cfg.kind == "graphcast":
+        n_mesh = N // 4 + 1
+        em = min(E, 8 * n_mesh)
+        return {
+            "x": arr((N, F_), dt),
+            "g2m": arr((E, 2), i32),
+            "mesh_e": arr((em, 2), i32),
+            "m2g": arr((E, 2), i32),
+            "target": arr((N, cfg.n_vars), dt),
+        }
+    raise ValueError((cfg.kind, shape.kind))

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.distributed.sharding import P, constrain, local_call
 
 NEG_INF = float("-inf")
 
@@ -324,20 +325,14 @@ def moe_capacity(cfg: LMConfig, T: int) -> int:
     return max(8, -(-raw // 8) * 8)
 
 
-def moe_ffn(cfg: LMConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Top-k MoE with shared experts — gather-only dispatch (no scatters).
-
-    Tokens are sorted by assigned expert (one stable argsort); each expert
-    reads its slots by gather, computes, and tokens gather their results
-    back through the inverse permutation.  Tokens past an expert's capacity
-    are dropped in the reference's order.
-    """
-    B, S, d = x.shape
-    T = B * S
+def _moe_route(cfg: LMConfig, router, xt):
+    """The dispatch over every token of ``xt`` (T, d): (xin (E, C, d) the
+    tokens each expert reads, topv (T, K) the gate weights, gslot (T·K,)
+    where each (token, k) landed, in_cap (T·K,) whether it fit)."""
+    T, d = xt.shape
     E, K = cfg.n_experts, cfg.top_k
-    dev = x.device
-    xt = x.reshape(T, d)
-    gates = torch.softmax(torch.einsum("td,de->te", xt.float(), p["router"]), dim=-1)
+    dev = xt.device
+    gates = torch.softmax(torch.einsum("td,de->te", xt.float(), router), dim=-1)
     topv, topi = top_k(gates, K)  # (T, K)
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
 
@@ -355,21 +350,62 @@ def moe_ffn(cfg: LMConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     slot_ok = slots[None, :] < counts[:, None]
     tok = torch.where(slot_ok, stk[torch.clamp(slot_idx, 0, T * K - 1)], 0)
     xin = xt[tok] * slot_ok[..., None].to(xt.dtype)  # (E, C, d)
-    h = F.silu(torch.einsum("ecd,edf->ecf", xin, p["we1"])) * torch.einsum(
-        "ecd,edf->ecf", xin, p["we3"]
-    )
-    yslots = torch.einsum("ecf,efd->ecd", h, p["we2"])  # (E, C, d)
 
     # inverse permutation: where did flat slot (t, k) land?
     iorder = torch.argsort(order, stable=True)  # (T*K,)
     pos = iorder - starts[flat_e]
     in_cap = pos < C
     gslot = torch.clamp(flat_e * C + pos, 0, E * C - 1)
-    ytk = yslots.reshape(E * C, d)[gslot] * in_cap[:, None].to(xt.dtype)
-    y = (ytk.reshape(T, K, d) * topv[..., None].to(xt.dtype)).sum(1)
+    return xin, topv, gslot, in_cap
+
+
+def _moe_experts(xin, we1, we3, we2):
+    h = F.silu(torch.einsum("ecd,edf->ecf", xin, we1)) * torch.einsum("ecd,edf->ecf", xin, we3)
+    return torch.einsum("ecf,efd->ecd", h, we2)  # (E, C, d)
+
+
+def _moe_shared(p, xt):
+    sh = F.silu(torch.einsum("td,df->tf", xt, p["ws1"])) * torch.einsum("td,df->tf", xt, p["ws3"])
+    return torch.einsum("tf,fd->td", sh, p["ws2"])
+
+
+def moe_ffn(cfg: LMConfig, p: dict, x: torch.Tensor, dp_axes: tuple = ()) -> torch.Tensor:
+    """Top-k MoE with shared experts — gather-only dispatch (no scatters).
+
+    Tokens are sorted by assigned expert (one stable argsort); each expert
+    reads its slots by gather, computes, and tokens gather their results
+    back through the inverse permutation.  Tokens past an expert's capacity
+    are dropped in the reference's order.
+
+    Sharding (when ``x`` is a DTensor): token-major tensors stay sharded
+    over dp, expert-major tensors over "model" (EP), as the reference's
+    ``tok_c`` and ``exp_c`` constraints say; on plain tensors both, and
+    every ``local_call``, are no-ops.
+    """
+
+    def tok_c(t):  # token-sharded constraint
+        return constrain(t, P(dp_axes, *([None] * (t.ndim - 1)))) if dp_axes else t
+
+    def exp_c(t):  # expert-sharded constraint
+        return constrain(t, P("model", *([None] * (t.ndim - 1)))) if dp_axes else t
+
+    B, S, d = x.shape
+    K = cfg.top_k
+    tok, rep = P(dp_axes, None), P()
+    xt = tok_c(local_call(lambda x: x.reshape(-1, d), (x,), (P(dp_axes, None, None),), tok))
+    # one argsort over every token, with the capacity of the whole batch:
+    # no split of it gives the same dispatch, so the tokens are gathered
+    xin, topv, gslot, in_cap = local_call(lambda xt, r: _moe_route(cfg, r, xt),
+                                          (xt, p["router"]), (rep, rep), (rep,) * 4)
+    xin = exp_c(xin)
+    ex = P("model", None, None)
+    yslots = exp_c(local_call(_moe_experts, (xin, p["we1"], p["we3"], p["we2"]), (ex,) * 4, ex))
+    # a token's k results sit in any expert's slots: the slots are gathered
+    ytk = tok_c(local_call(lambda ys, gs, ok: ys.reshape(-1, d)[gs] * ok[:, None].to(ys.dtype),
+                           (yslots, gslot, in_cap), (rep, rep, rep), rep))
+    y = local_call(lambda ytk, tv: (ytk.reshape(-1, K, d) * tv[..., None].to(ytk.dtype)).sum(1),
+                   (ytk, topv), (tok, tok), tok)
     if cfg.n_shared:
-        sh = F.silu(torch.einsum("td,df->tf", xt, p["ws1"])) * torch.einsum(
-            "td,df->tf", xt, p["ws3"]
-        )
-        y = y + torch.einsum("tf,fd->td", sh, p["ws2"])
-    return y.reshape(B, S, d)
+        shared = {k: p[k] for k in ("ws1", "ws2", "ws3")}
+        y = y + local_call(_moe_shared, (shared, xt), (rep, tok), tok)
+    return local_call(lambda y: y.reshape(-1, S, d), (y,), (tok,), P(dp_axes, None, None))

@@ -10,8 +10,13 @@ Item ids must lie in ``[0, n_items)``: the reference's ``jnp.take`` fills
 an out-of-range id where the card's indexing would assert, so every lookup
 here checks its ids and raises ``IndexError`` instead
 (:class:`repro_torch.data.recsys.BehaviorStream` keeps them in range).
-The reference's sharding (``param_specs``, ``input_specs``) waits for a
-port of ``repro.distributed``.
+
+Sharding (``param_specs``, ``input_specs``): the item table is row-sharded
+over ("data", "model"), the batch over the dp axes.  On DTensors the train
+step runs SPMD: every rank looks up every id of the batch in the rows it
+holds (zeros elsewhere) and the sum over the table's axes lands on the
+batch rows; each rank then routes its own users, against the targets of
+the whole batch (the in-batch negatives).
 """
 
 from __future__ import annotations
@@ -22,18 +27,33 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import RecsysConfig, ShapeSpec
+from repro_torch.distributed.sharding import (P, NamedSharding, ShapeDtypeStruct, axes_index,
+                                              constrain, full, is_dtensor, like, local_call,
+                                              named_sharding)
 from repro_torch.optim import adamw_update
 
 
-def param_defs(cfg: RecsysConfig) -> Dict[str, tuple]:
+def param_table(cfg: RecsysConfig) -> Dict[str, tuple]:
+    """{name: (shape, dtype, spec)}."""
     dt = cfg.torch_dtype
     d = cfg.embed_dim
     return {
-        "item_table": ((cfg.n_items, d), dt),
-        "bilinear": ((d, d), dt),  # B2I routing map S
-        "label_att": ((d, d), dt),
-        "out_proj": ((d, d), dt),
+        "item_table": ((cfg.n_items, d), dt, (("data", "model"), None)),
+        "bilinear": ((d, d), dt, (None, None)),  # B2I routing map S
+        "label_att": ((d, d), dt, (None, None)),
+        "out_proj": ((d, d), dt, (None, None)),
     }
+
+
+def param_defs(cfg: RecsysConfig) -> Dict[str, tuple]:
+    """{name: (shape, dtype)} (``param_table`` without specs)."""
+    return {k: (shape, dt) for k, (shape, dt, _) in param_table(cfg).items()}
+
+
+def param_specs(cfg: RecsysConfig, mesh):
+    """{name: ShapeDtypeStruct} with each weight's sharding."""
+    return {k: ShapeDtypeStruct(shape, dt, named_sharding(mesh, shape, *spec))
+            for k, (shape, dt, spec) in param_table(cfg).items()}
 
 
 def init_params(cfg: RecsysConfig, generator: torch.Generator, *, device=None):
@@ -72,7 +92,11 @@ def _squash(v):
 def interests(cfg: RecsysConfig, params, hist_ids, hist_mask):
     """B2I dynamic routing → (B, n_interests, d) interest capsules.  The
     routing logits carry the gradient through every iteration."""
-    e = take(params["item_table"], hist_ids)  # (B, L, d)
+    return _capsules(cfg, params, take(params["item_table"], hist_ids), hist_mask)
+
+
+def _capsules(cfg: RecsysConfig, params, e, hist_mask):
+    """The routing of the looked-up behaviours ``e`` (B, L, d)."""
     e = e * hist_mask[..., None].to(e.dtype)
     u = e @ params["bilinear"]  # behaviour→interest map (shared S)
     B, Lh, d = u.shape
@@ -90,20 +114,83 @@ def interests(cfg: RecsysConfig, params, hist_ids, hist_mask):
     return caps  # (B, K, d)
 
 
-def train_loss(cfg: RecsysConfig, params, batch):
-    """Label-aware attention + in-batch sampled-softmax retrieval loss; the
-    in-batch logits are (B, B) in f32."""
-    caps = interests(cfg, params, batch["hist_ids"], batch["hist_mask"])
-    tgt = take(params["item_table"], batch["target_id"])  # (B, d)
+def _user_logp(cfg: RecsysConfig, params, caps, tgt, tgt_all, first: int):
+    """The log-probability of each user's own target among every target of
+    the batch (users ``first``, ``first + 1``, ... of it)."""
     att = torch.softmax(
         torch.einsum("bkd,bd->bk", caps, tgt @ params["label_att"]).float() * 4.0,
         dim=-1)
     user = torch.einsum("bk,bkd->bd", att.to(caps.dtype), caps)
     user = user @ params["out_proj"]
-    logits = (user @ tgt.T).float()  # in-batch negatives (B, B)
-    lab = torch.arange(logits.shape[0], device=logits.device)
+    logits = (user @ tgt_all.T).float()  # in-batch negatives (B, B)
+    lab = first + torch.arange(logits.shape[0], device=logits.device)
     logp = F.log_softmax(logits, dim=-1)
-    return -torch.mean(torch.gather(logp, 1, lab[:, None]))
+    return torch.gather(logp, 1, lab[:, None])
+
+
+def train_loss(cfg: RecsysConfig, params, batch):
+    """Label-aware attention + in-batch sampled-softmax retrieval loss; the
+    in-batch logits are (B, B) in f32.  On DTensors the batch's own
+    placements name the dp axes: each rank routes its own users against
+    the targets of the whole batch (gathered)."""
+    ids = batch["hist_ids"]
+    dp_axes = _entry(_spec(ids)[0]) if is_dtensor(ids) else ()
+    e = _take(params["item_table"], ids, dp_axes)  # (B, L, d)
+    tgt = _take(params["item_table"], batch["target_id"], dp_axes)  # (B, d)
+    B = tgt.shape[0]
+    first = axes_index(tgt.device_mesh, dp_axes) if is_dtensor(tgt) else 0
+    rows = P(dp_axes, None)
+    small = {k: params[k] for k in ("bilinear", "label_att", "out_proj")}
+
+    def local(e, mask, tgt, tgt_all, p):
+        caps = _capsules(cfg, p, e, mask)
+        logp = _user_logp(cfg, p, caps, tgt, tgt_all, first * tgt.shape[0])
+        # this rank's mean, weighted by its share of the users
+        return -torch.mean(logp) * (tgt.shape[0] / B)
+
+    part = local_call(local, (e, batch["hist_mask"], tgt, tgt, small),
+                      (P(dp_axes, None, None), rows, rows, P(), P()), P(),
+                      partial=dp_axes)
+    return full(part)
+
+
+def _spec(t) -> P:
+    """A DTensor's placements as a spec."""
+    names = t.device_mesh.mesh_dim_names
+    spec = [[] for _ in range(t.ndim)]
+    for j, p in enumerate(t.placements):
+        if getattr(p, "dim", None) is not None:
+            spec[p.dim].append(names[j])
+    return P(*spec)
+
+
+def _entry(e) -> tuple:
+    return () if e is None else ((e,) if isinstance(e, str) else tuple(e))
+
+
+def _take(table, ids, dp_axes):
+    """``take`` from the item table, which may be row-sharded: then the ids
+    are gathered, each rank looks up the rows it holds (zeros elsewhere:
+    every id hits one rank, so the sum over the table's axes is exact) and
+    the sum lands on the batch rows of ``dp_axes``."""
+    row_axes = _entry(_spec(table)[0]) if is_dtensor(table) else ()
+    n = table.shape[0]
+    first = axes_index(table.device_mesh, row_axes) if row_axes else 0
+
+    def look(tab, ids):
+        if tab.shape[0] == n:  # the whole table on this rank
+            return take(tab, ids)
+        if ids.numel() and bool(((ids < 0) | (ids >= n)).any()):
+            bad = ids[(ids < 0) | (ids >= n)][0]
+            raise IndexError(f"item id {int(bad)} outside [0, {n})")
+        loc = ids.long() - first * tab.shape[0]
+        hit = (loc >= 0) & (loc < tab.shape[0])
+        e = tab.index_select(0, torch.where(hit, loc, 0).reshape(-1))
+        return e.reshape(*ids.shape, tab.shape[1]) * hit[..., None].to(e.dtype)
+
+    out = local_call(look, (table, ids), (_spec(table) if row_axes else P(), P()),
+                     P(*([None] * (ids.ndim + 1))), partial=row_axes)
+    return constrain(out, P(dp_axes, *([None] * ids.ndim)))
 
 
 def serve_scores(cfg: RecsysConfig, params, batch):
@@ -123,12 +210,13 @@ def retrieval_scores(cfg: RecsysConfig, params, batch):
 
 
 def loss_and_grads(cfg: RecsysConfig, params, batch):
-    """(loss, gradients as a dict like the params)."""
+    """(loss, gradients as a dict like the params; on DTensors each laid
+    out like its parameter)."""
     leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
     with torch.enable_grad():
         loss = train_loss(cfg, leaves, batch)
         grads = torch.autograd.grad(loss, [leaves[k] for k in sorted(leaves)])
-    return loss.detach(), dict(zip(sorted(leaves), grads))
+    return loss.detach(), {k: like(g, leaves[k]) for k, g in zip(sorted(leaves), grads)}
 
 
 def make_step(cfg: RecsysConfig, shape: ShapeSpec, opt_cfg=None):
@@ -150,7 +238,40 @@ def make_step(cfg: RecsysConfig, shape: ShapeSpec, opt_cfg=None):
 
     @torch.no_grad()
     def serve(params, batch):
+        if any(is_dtensor(t) for t in batch.values()):
+            raise NotImplementedError("sharded serving is not ported; gather first")
         return score(cfg, params, batch)
 
     return serve
 
+
+
+def input_specs(cfg: RecsysConfig, shape: ShapeSpec, mesh, dp_axes=("data",)):
+    """Input ShapeDtypeStructs per MIND cell: the batch rows over
+    ``dp_axes``; retrieval's one query replicated, its candidates split."""
+    dt = torch.float32
+    B = shape.batch
+    Lh = cfg.hist_len
+    i32 = torch.int32
+
+    def arr(s, dtype, sh=None):
+        if sh is None:
+            sh = named_sharding(mesh, s, dp_axes, *([None] * (len(s) - 1)))
+        return ShapeDtypeStruct(s, dtype, sh)
+
+    base = {"hist_ids": arr((B, Lh), i32), "hist_mask": arr((B, Lh), dt)}
+    if shape.kind == "recsys_train":
+        base["target_id"] = arr((B,), i32)
+        return base
+    if shape.kind == "recsys_serve":
+        ncand = 256  # per-request rerank set
+        base["cand_ids"] = arr((B, ncand), i32)
+        return base
+    if shape.kind == "recsys_retrieval":
+        rep = NamedSharding(mesh, P(None, None))
+        return {
+            "hist_ids": arr((1, Lh), i32, rep),
+            "hist_mask": arr((1, Lh), dt, rep),
+            "cand_ids": arr((shape.n_candidates,), i32),
+        }
+    raise ValueError(shape.kind)

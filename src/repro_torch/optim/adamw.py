@@ -21,6 +21,9 @@ from typing import Any, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import (P, NamedSharding, ShapeDtypeStruct, axis_names,
+                                              contiguous_stride, is_dtensor, mesh_device,
+                                              mesh_shape, shift_placements)
 from repro_torch.tree import tree_leaves, tree_map
 
 QBLOCK = 128
@@ -105,15 +108,38 @@ def _adam(p, g, m, v, b1c, b2c, cfg: OptConfig):
     p.copy_(p32.sub_(step, alpha=cfg.lr))
 
 
+def _local(t, want: tuple, what: str):
+    """A DTensor's local block, checked to lie as ``want`` says (the update
+    is elementwise, so each rank's blocks of p, g, m and v must line up)."""
+    if tuple(t.placements) != want:
+        raise ValueError(f"{what} placed {tuple(t.placements)}, its parameter {want}")
+    return t.to_local()
+
+
 def adamw_update(params: Any, grads: Any, state: Any, cfg: OptConfig):
     """One AdamW step → (params, state), both updated in place.
 
-    A gradient may be the list of a stacked parameter's layer slices."""
+    A gradient may be the list of a stacked parameter's layer slices.  On
+    DTensors laid out alike (parameters by ``param_specs``, moments by
+    ``opt_state_specs``, gradients constrained to the parameters' shardings)
+    each rank updates its own blocks, with the same arithmetic."""
     count = state["count"] + 1
-    b1c = 1.0 - torch.pow(cfg.b1, count.float())
-    b2c = 1.0 - torch.pow(cfg.b2, count.float())
+    c = count.to_local() if is_dtensor(count) else count
+    b1c = 1.0 - torch.pow(cfg.b1, c.float())
+    b2c = 1.0 - torch.pow(cfg.b2, c.float())
 
     def upd(p, g, mv):
+        if is_dtensor(p):
+            if cfg.quantized:
+                raise NotImplementedError("the 8-bit update of sharded moments: "
+                                          "opt_state_specs gives its layout only")
+            pl = tuple(p.placements)
+            if isinstance(g, list):
+                g = [_local(s, shift_placements(pl, -1), "a layer's gradient") for s in g]
+            else:
+                g = _local(g, pl, "a gradient")
+            p = p.to_local()
+            mv = {"m": _local(mv["m"], pl, "m"), "v": _local(mv["v"], pl, "v")}
         if cfg.quantized:
             if isinstance(g, list):
                 g = torch.stack(g)
@@ -132,3 +158,58 @@ def adamw_update(params: Any, grads: Any, state: Any, cfg: OptConfig):
         tree_map(upd, params, grads, state["mu"])
         state["count"] = count
     return params, state
+
+
+def opt_state_specs(param_specs: Any, cfg: OptConfig, mesh) -> Any:
+    """ShapeDtypeStructs for the optimizer state, mirroring param shardings.
+
+    fp32 moments inherit the param sharding; int8 payloads are flat and get
+    sharded across every mesh axis when the block count divides (ZeRO-style
+    fully-sharded optimizer state), else replicated.
+    """
+    names = axis_names(mesh)
+    ndev = math.prod(mesh_shape(mesh).values())
+
+    def mk(ps):
+        if cfg.quantized:
+            flat = math.prod(ps.shape)
+            nblk = -(-flat // QBLOCK)
+            total = nblk * QBLOCK
+            qspec = P(names) if total % (ndev * QBLOCK) == 0 else P()
+            sspec = P(names) if nblk % ndev == 0 else P()
+
+            def q8(shape):
+                return Q8State(
+                    q=ShapeDtypeStruct((total,), torch.int8, NamedSharding(mesh, qspec)),
+                    scale=ShapeDtypeStruct((nblk,), torch.float32, NamedSharding(mesh, sspec)),
+                    shape=tuple(shape),
+                )
+
+            return {"m": q8(ps.shape), "v": q8(ps.shape)}
+        return {
+            "m": ShapeDtypeStruct(ps.shape, torch.float32, ps.sharding),
+            "v": ShapeDtypeStruct(ps.shape, torch.float32, ps.sharding),
+        }
+
+    return {
+        "mu": tree_map(mk, param_specs),
+        "count": ShapeDtypeStruct((), torch.int32, NamedSharding(mesh, P())),
+    }
+
+
+def opt_state_from_specs(specs: Any, *, device=None) -> Any:
+    """Zero f32 moments and a zero count as DTensors laid out by
+    ``opt_state_specs`` (each rank allocates its own blocks only)."""
+    from torch.distributed.tensor import DTensor
+
+    def zeros(s):
+        if isinstance(s, Q8State):
+            raise NotImplementedError("8-bit moments on a mesh: opt_state_specs gives "
+                                      "their layout only")
+        sh = s.sharding
+        local = torch.zeros(sh.shard_shape(s.shape), dtype=s.dtype,
+                            device=device or mesh_device(sh.mesh))
+        return DTensor.from_local(local, sh.mesh, sh.placements, run_check=False,
+                                  shape=s.shape, stride=contiguous_stride(s.shape))
+
+    return tree_map(zeros, specs)

@@ -208,3 +208,76 @@ def test_train_cli_runs_and_resumes(tmp_path, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "resumed from checkpoint at step 2" in out and "final loss" in out
     assert CheckpointManager(tmp_path).latest_step() == 4
+
+
+# ---------------------------------------------------------------------------
+# Elastic restore onto a mesh of gloo ranks
+# ---------------------------------------------------------------------------
+
+
+def test_elastic_restore_round_trips_on_gloo_ranks(tmp_path):
+    """Save unsharded (the port) and from the reference; restore both onto
+    (4,) and (2, 2) meshes of 4 gloo ranks (tests/_torch_ckpt_ranks_prog.py:
+    each rank holds exactly its block, the gathered arrays equal the file
+    bit for bit); the DTensors saved back restore in the reference equal to
+    the original."""
+    import os
+    import subprocess
+    import sys
+
+    from _torch_ckpt_ranks_prog import template
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.abspath(os.path.join(here, "..", "src"))
+    _, tree = template()
+    save_pytree(tree, tmp_path / "plain.npz")
+    jtree = jax.tree.map(lambda t: jnp.asarray(
+        convert.tensor_to_numpy(t), jnp.bfloat16 if t.dtype == torch.bfloat16 else None), tree)
+    jsave(jtree, tmp_path / "ref.npz")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([src, here, os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen([sys.executable, os.path.join(here, "_torch_ckpt_ranks_prog.py"),
+                               str(r), "4", str(tmp_path / "store"), str(tmp_path)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(4)]
+    try:
+        for p in procs:
+            p.wait(timeout=120)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    logs = "\n".join(p.stdout.read()[-3000:] for p in procs if p.returncode != 0)
+    assert all(p.returncode == 0 for p in procs), logs
+    for n in (1, 2):
+        back = jload(jtree, tmp_path / f"from_ranks{n}.npz")
+        for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jtree)):
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+
+
+def test_restore_with_shardings_on_a_world_of_one(tmp_path):
+    """``CheckpointManager.restore(..., shardings=)`` on a (1, 1) mesh equals
+    the unsharded restore (the layout of ``chip_smoke.py``'s phase 13d)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.launch.mesh import make_test_mesh
+
+    created = not dist.is_initialized()  # else this worker's world of one
+    _, tcfg = configs("starcoder2-3b", "bfloat16")
+    params = ttf.init_params(tcfg, torch.Generator().manual_seed(1), device="cpu")
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(3, {"params": params}, blocking=True)
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"), device="cpu")
+        step, back = mgr.restore({"params": params},
+                                 shardings={"params": ttf.param_specs(tcfg, mesh)})
+        _, plain = mgr.restore({"params": params})
+        assert step == 3
+        for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(plain)):
+            assert is_dtensor(a)
+            np.testing.assert_array_equal(_bits(a.full_tensor()), _bits(b))
+    finally:
+        if created:
+            dist.destroy_process_group()

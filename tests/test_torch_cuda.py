@@ -1012,3 +1012,42 @@ def test_mind_step_and_scores_on_card_match_cpu(cuda):
     bad[0, 0] = cfg.n_items
     with pytest.raises(IndexError):
         recsys.serve_scores(cfg, card, dict(bd, cand_ids=bad.to(cuda)))
+
+
+# ---------------------------------------------------------------------------
+# distributed/: int8 compression and a sharded step on one NCCL rank
+# ---------------------------------------------------------------------------
+
+
+def test_compress_tree_on_card_is_bit_identical_to_cpu(cuda):
+    """q, scales and residuals of f32 and bf16 leaves, sizes off QBLOCK."""
+    from repro_torch.distributed.compression import compress_tree
+
+    gen = torch.Generator().manual_seed(5)
+    grads = {f"g{i}": torch.randn(n, generator=gen) * 10 ** (i - 2)
+             for i, n in enumerate((1, 255, 257, 4099, 100_003))}
+    grads["h"] = torch.randn(3, 517, generator=gen).bfloat16()
+    err = {k: torch.randn(v.shape, generator=gen) * 1e-3 for k, v in grads.items()}
+    qc, ec = compress_tree(grads, err)
+    qd, ed = compress_tree({k: v.to(cuda) for k, v in grads.items()},
+                           {k: v.to(cuda) for k, v in err.items()})
+    for k in grads:
+        assert torch.equal(qd[k][0].cpu(), qc[k][0]), k
+        assert torch.equal(qd[k][1].cpu(), qc[k][1]), k
+        assert torch.equal(ed[k].cpu(), ec[k]), k
+
+
+@pytest.mark.parametrize("family", ["starcoder2", "granite_moe", "sage_full", "gatedgcn",
+                                    "mind"])
+def test_sharded_step_on_one_nccl_rank_matches_unsharded(cuda, family):
+    """Two steps of a reduced config on a (1, 1) mesh (one NCCL rank:
+    parameters by ``param_specs``, moments by ``opt_state_specs``, inputs by
+    ``input_specs``) against the unsharded steps on the card, within
+    tests/test_torch_sharded_steps.py's tolerances (the card's scatter-adds
+    sum in atomic order, so not always bit for bit)."""
+    from _torch_sharded_cases import check_records, port_run
+    from repro_torch.launch.mesh import make_test_mesh
+
+    mesh = make_test_mesh((1, 1), ("data", "model"), device="cuda")
+    assert mesh.device_type == "cuda"
+    check_records(port_run(family, mesh, ("data",)), port_run(family, device=cuda), family)
