@@ -185,7 +185,17 @@ result):
    per-device parameter and optimizer-state GB of every train cell of the
    registry on (16, 16) and (2, 16, 16) from shard_shape, beside the
    card's memory (state only: the port's step adds one layer gathered at a
-   time, and computes every layer whole on each rank of "model");
+   time); 13f (inside phase 11) starcoder2-3b at full width: a
+   grad_accum=2 step on DTensor tokens bit for bit the plain grad_accum=2
+   step from the same state, a batch_chunks=2 prefill = the plain prefill,
+   8 decode tokens through the sharded decode with DTensor caches = phase
+   11's decode bit for bit; 13g granite-moe-1b-a400m at full width with
+   the 8-bit AdamW: the sharded step (payloads by opt_state_specs) bit for
+   bit the plain step; 13h (inside phase 12) schnet x molecule and graphcast
+   x full_graph_sm sharded steps against the plain ones (13b's bounds); 13i
+   (inside 12f) mind's serve_p99 and retrieval_cand through sharded serving
+   = the plain scores within 1e-5 of max, p50 beside the plain p50; every
+   part's seconds and peak GB beside the plain path's;
 14. a line of launches by path, then one JSON line with each kernel's
    launches on its paths (the top-K ones of phase 9 included), its error and
    mismatches against the plain version, and its time beside its bound and
@@ -2664,7 +2674,7 @@ def phase13d_elastic_restore(dev, preset, ckpt_dir, rec):
 
 
 def phase13b_sharded_vs_plain(dev, what, step, params, opt_state, batch, pspecs, ospecs,
-                              ispecs, lr):
+                              ispecs, lr, tag="13b"):
     """13b: one unsharded step from a cell's current state, the state
     restored from copies on the card, one step on DTensor views through
     the cell's specs on a (1, 1) mesh; loss and parameters against the
@@ -2697,13 +2707,201 @@ def phase13b_sharded_vs_plain(dev, what, step, params, opt_state, batch, pspecs,
     out = {"loss": float(loss), "loss_unsharded": float(loss_u), "loss_rel_err": loss_err,
            "params_bit_identical": same, "params_max_err": worst, "params_off_share": off,
            "s": s, "s_unsharded": s_u, "peak_gb": peak}
-    log(f"phase 13b: {what} on the (1, 1) mesh: loss {float(loss):.6f} against the unsharded "
-        f"{float(loss_u):.6f} (rel {loss_err:.2e}, at most 1e-5); parameters bit-identical "
-        f"{same}, largest diff {worst:.2e} of max, {off:.2e} of them off 1e-5 (at most 2·lr and "
-        f"1e-3); sharded step {s:.3f} s against {s_u:.3f} s unsharded; peak {peak:.2f} GB")
+    log(f"phase {tag}: {what} on the (1, 1) mesh: loss {float(loss):.6f} against the "
+        f"unsharded {float(loss_u):.6f} (rel {loss_err:.2e}, at most 1e-5); parameters "
+        f"bit-identical {same}, largest diff {worst:.2e} of max, {off:.2e} of them off 1e-5 (at "
+        f"most 2·lr and 1e-3); sharded step {s:.3f} s against {s_u:.3f} s unsharded; peak "
+        f"{peak:.2f} GB")
     if loss_err > 1e-5:
-        raise AssertionError(f"13b {what}: {out}")
+        raise AssertionError(f"{tag} {what}: {out}")
     return out
+
+
+def phase13f_lm_paths(dev, cfg, params, tok, rec):
+    """13f: starcoder2-3b at full width through the specs on the (1, 1)
+    mesh.  A grad_accum=2 step from fresh zero moments, plain and then on
+    DTensor views with DTensor tokens from the same state restored (the
+    parameters from a host copy): bit for bit.  A batch_chunks=2 prefill,
+    plain and on DTensors: equal.  Returns the parameters as they were."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.sharding import full
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.optim.adamw import opt_state_specs
+    from repro_torch.tree import tree_leaves
+
+    opt_cfg = OptConfig(lr=1e-3)
+    mesh = one_rank_mesh(dev)
+    specs = tf.param_specs(cfg, mesh)
+    leaves = tree_leaves(params)
+    p0 = [t.to("cpu", copy=True) for t in leaves]
+    state = adamw_init(params, opt_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    (_, _, loss_u), s_u = timed(tf.make_train_step(cfg, opt_cfg, grad_accum=2), params, state,
+                                tok)
+    peak_u = torch.cuda.max_memory_allocated() / 1e9
+    p1 = [t.to("cpu", copy=True) for t in leaves]
+    msum = [float(t.sum(dtype=torch.float64)) for t in tree_leaves(state["mu"])]
+    with torch.no_grad():
+        for t, h in zip(leaves, p0):
+            t.copy_(h)
+        for t in tree_leaves(state["mu"]):
+            t.zero_()
+    state["count"] = torch.zeros((), dtype=torch.int32, device=dev)
+    cell = ShapeSpec(name="13f", kind="train", seq_len=tok.shape[1], global_batch=tok.shape[0])
+    dtok = tf.input_specs(cfg, cell, mesh)["tokens"].sharding.distribute(tok)
+    sstep = tf.make_train_step(cfg, opt_cfg, ("data",), grad_accum=2, param_shardings=specs)
+    torch.cuda.reset_peak_memory_stats()
+    (_, _, loss), s = timed(sstep, wrap(params, specs),
+                            wrap(state, opt_state_specs(specs, opt_cfg, mesh)), dtok)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    same, worst, _ = params_vs(dev, leaves, p1)
+    m_same = all(float(t.sum(dtype=torch.float64)) == m
+                 for t, m in zip(tree_leaves(state["mu"]), msum))
+    del state, p1
+    with torch.no_grad():  # the parameters phase 11 left, for its decode
+        for t, h in zip(leaves, p0):
+            t.copy_(h)
+    del p0
+    torch.cuda.empty_cache()
+    rec["13f_accum"] = {"loss": float(loss), "loss_plain": float(loss_u),
+                        "params_bit_identical": same, "params_max_err": worst,
+                        "moment_sums_equal": m_same, "s": s, "s_plain": s_u, "peak_gb": peak,
+                        "peak_gb_plain": peak_u}
+    log(f"phase 13f: {cfg.name} grad_accum=2 ({tok.shape[0]}, {tok.shape[1]}) step on DTensor "
+        f"tokens: loss {float(loss):.6f} against the plain {float(loss_u):.6f}; parameters "
+        f"bit-identical {same} (largest diff {worst:.2e} of max), moment sums equal {m_same}; "
+        f"{s:.3f} s against {s_u:.3f} s plain; peak {peak:.2f} GB against {peak_u:.2f} GB")
+    if not (same and m_same and float(loss) == float(loss_u)):
+        raise AssertionError(f"13f: the sharded grad_accum step differs: {rec['13f_accum']}")
+    # prefill in two chunks of the global rows
+    from repro_torch.data.tokens import TokenStream
+
+    ptok = torch.from_numpy(TokenStream(cfg.vocab, PREFILL_B, PREFILL_S, seed=3).batch_at(0)
+                            ).to(dev)
+    pcell = ShapeSpec(name="13f", kind="prefill", seq_len=PREFILL_S, global_batch=PREFILL_B)
+    torch.cuda.reset_peak_memory_stats()
+    want, s_u = timed(tf.make_prefill_step(cfg, batch_chunks=2), params, ptok)
+    peak_u = torch.cuda.max_memory_allocated() / 1e9
+    dp = tf.input_specs(cfg, pcell, mesh)["tokens"].sharding.distribute(ptok)
+    torch.cuda.reset_peak_memory_stats()
+    got, s = timed(tf.make_prefill_step(cfg, ("data",), batch_chunks=2), wrap(params, specs), dp)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    got = full(got)
+    equal = bool(torch.equal(got, want))
+    rec["13f_prefill"] = {"B": PREFILL_B, "S": PREFILL_S, "equal": equal,
+                          "max_err": rel_err(got, want), "s": s, "s_plain": s_u,
+                          "peak_gb": peak, "peak_gb_plain": peak_u}
+    log(f"phase 13f: {cfg.name} batch_chunks=2 prefill ({PREFILL_B}, {PREFILL_S}) on DTensor "
+        f"tokens: last-token logits {tuple(got.shape)} equal to the plain prefill's {equal}; "
+        f"{s:.3f} s against {s_u:.3f} s plain; peak {peak:.2f} GB against {peak_u:.2f} GB")
+    if not equal:
+        raise AssertionError(f"13f: the sharded prefill differs: {rec['13f_prefill']}")
+
+
+def phase13f_decode(dev, cfg, params, prompt, want, plain_s, rec):
+    """13f: the prompt's tokens one at a time through the sharded decode
+    (parameters by ``param_specs``, caches by ``_cache_specs``, tokens and
+    ``cache_len`` by ``input_specs``) on the (1, 1) mesh: phase 11's bf16
+    decode logits bit for bit."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.sharding import full
+    from repro_torch.models import transformer as tf
+
+    mesh = one_rank_mesh(dev)
+    B, n = prompt.shape
+    ispecs = tf.input_specs(cfg, ShapeSpec(name="13f", kind="decode", seq_len=64,
+                                           global_batch=B), mesh)
+    dparams = wrap(params, tf.param_specs(cfg, mesh))
+
+    def decode():
+        caches = tf.caches_from_specs(ispecs["caches"])
+        step = tf.make_decode_step(cfg)
+        out = []
+        for i in range(n):
+            clen = ispecs["cache_len"].sharding.distribute(
+                torch.tensor(i, dtype=torch.int32, device=dev))
+            lg, caches = step(dparams, caches, ispecs["tokens"].sharding.distribute(prompt[:, i]),
+                              clen)
+            out.append(full(lg))
+        return torch.stack(out, 1)
+
+    torch.cuda.reset_peak_memory_stats()
+    got, s = timed(decode)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    equal = bool(torch.equal(got, want))
+    rec["13f_decode"] = {"tokens": n, "B": B, "equal": equal, "max_err": rel_err(got, want),
+                         "s": s, "s_plain": plain_s, "peak_gb": peak}
+    log(f"phase 13f: {cfg.name} {n} decode tokens of a ({B}, 64) cache through the sharded "
+        f"decode (DTensor caches by _cache_specs): logits equal to phase 11's bf16 decode "
+        f"{equal}; {s:.3f} s against {plain_s:.3f} s plain; peak {peak:.2f} GB")
+    if not equal:
+        raise AssertionError(f"13f: the sharded decode differs: {rec['13f_decode']}")
+
+
+def phase13g_q8(dev, rec):
+    """13g: granite-moe-1b-a400m at full width with the 8-bit AdamW: one
+    plain step from fresh moments, then the parameters restored and one
+    step on DTensor views with 8-bit moments laid out by
+    ``opt_state_specs`` (``opt_state_from_specs``): parameters, payloads,
+    scales and loss bit for bit."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.optim.adamw import opt_state_from_specs, opt_state_specs
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_arch("granite-moe-1b-a400m").model
+    q8 = OptConfig(lr=1e-3, quantized=True)
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    leaves = tree_leaves(params)
+    tok = torch.from_numpy(TokenStream(cfg.vocab, Q8_B, Q8_S, seed=4).batch_at(0)).to(dev)
+    p0 = [t.clone() for t in leaves]
+    state = adamw_init(params, q8)
+    torch.cuda.reset_peak_memory_stats()
+    (_, state, loss_u), s_u = timed(tf.make_train_step(cfg, q8), params, state, tok)
+    peak_u = torch.cuda.max_memory_allocated() / 1e9
+    p1 = [t.clone() for t in leaves]
+    q1 = [(st.q.clone(), st.scale.clone()) for st in tree_leaves(state["mu"])]
+    del state
+    with torch.no_grad():
+        for t, c in zip(leaves, p0):
+            t.copy_(c)
+    del p0
+    mesh = one_rank_mesh(dev)
+    specs = tf.param_specs(cfg, mesh)
+    dstate = opt_state_from_specs(opt_state_specs(specs, q8, mesh))
+    cell = ShapeSpec(name="13g", kind="train", seq_len=Q8_S, global_batch=Q8_B)
+    dtok = tf.input_specs(cfg, cell, mesh)["tokens"].sharding.distribute(tok)
+    torch.cuda.reset_peak_memory_stats()
+    (_, dstate, loss), s = timed(tf.make_train_step(cfg, q8, ("data",), param_shardings=specs),
+                                 wrap(params, specs), dstate, dtok)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    p_same = all(bool(torch.equal(a, b)) for a, b in zip(leaves, p1))
+    q_same = all(bool(torch.equal(st.q.to_local(), q)) and
+                 bool(torch.equal(st.scale.to_local(), sc))
+                 for st, (q, sc) in zip(tree_leaves(dstate["mu"]), q1))
+    rec["13g"] = {"arch": cfg.name, "params": cfg.params_count(), "loss": float(loss),
+                  "loss_plain": float(loss_u), "params_bit_identical": p_same,
+                  "q8_bit_identical": q_same, "s": s, "s_plain": s_u, "peak_gb": peak,
+                  "peak_gb_plain": peak_u}
+    log(f"phase 13g: {cfg.name} at full width ({cfg.params_count()} params), one ({Q8_B}, "
+        f"{Q8_S}) step with 8-bit AdamW moments: sharded (payloads by opt_state_specs) against "
+        f"plain: loss {float(loss):.6f} / {float(loss_u):.6f}, parameters bit-identical "
+        f"{p_same}, payloads and scales bit-identical {q_same}; {s:.3f} s against {s_u:.3f} s "
+        f"plain; peak {peak:.2f} GB against {peak_u:.2f} GB")
+    if not (p_same and q_same and float(loss) == float(loss_u)):
+        raise AssertionError(f"13g: the sharded 8-bit step differs: {rec['13g']}")
+    del params, dstate, p1, q1
+    torch.cuda.empty_cache()
 
 
 def phase13e_state_table(dev):
@@ -2760,10 +2958,8 @@ def phase13e_state_table(dev):
                              "share_of_card": (p_gb + o_gb) / card_gb})
     log(f"phase 13e: per-device parameters + optimizer state from shard_shape (host "
         f"arithmetic; STATE ONLY: activations and the fit verdict wait for the dry-run slice; "
-        f"the port's sharded step also holds one layer gathered whole over the ZeRO axes and "
-        f"'model' at a time, and every rank of 'model' computes each layer whole, so its "
-        f"FLOPs per device are 'model' times a tensor-parallel step's), beside this card's "
-        f"{card_gb:.1f} GB:")
+        f"the port's sharded step also holds one layer gathered over the ZeRO axes at a time, "
+        f"its shard of 'model' kept split), beside this card's {card_gb:.1f} GB:")
     for r in rows:
         log(f"phase 13e:   {r['arch']} x {r['shape']} on {tuple(r['mesh'])}: params "
             f"{r['params_gb']:.4f} GB + optimizer {r['opt_gb']:.4f} GB"
@@ -2780,6 +2976,8 @@ LONG_S = 4096  # LM_SHAPES train_4k's sequence length (its global batch 256 cut 
 # card vs CPU of the reduced configs (f32 variants): |card - cpu| <= atol +
 # rtol·|cpu|, atol a fraction of max|cpu| (tests/test_torch_lm.py's)
 LOSS_RTOL, LOGITS_ATOL, GRADS_ATOL = 1e-5, 5e-5, 2e-4
+PREFILL_B, PREFILL_S = 4, 512  # 13f's prefill: two chunks of two rows
+Q8_B, Q8_S = 4, 256  # 13g's batch
 # full-width decode vs forward at the same positions (the max over logits,
 # over max|forward|).  The reference's init draws wq and wk with fan_in =
 # heads (24 and 2), so attention scores have std ~400 and the softmax is a
@@ -2912,6 +3110,7 @@ def full_width_training(dev, cfg, rec):
                                  f"one step at train_4k's sequence length, {LONG_S // 1024} KV "
                                  f"chunks of 1024 under recompute")
     del opt_state
+    rec["tok"] = tok
     return params
 
 
@@ -2942,6 +3141,7 @@ def full_width_decode(dev, cfg, params, rec):
     with torch.no_grad():
         fwd16 = tf.forward(cfg, params, prompt)
     dec16, dec_s = timed(decode, cfg, params)
+    phase13f_decode(dev, cfg, params, prompt, dec16, dec_s, rec)
     c32 = dataclasses.replace(cfg, dtype="float32")
     p32 = tree_map(lambda t: t.float(), params)
     with torch.no_grad():
@@ -3096,11 +3296,13 @@ def phase11_trainer(dev, root):
     t_phase = time.perf_counter()
     zero_kernel_counts()
     params = full_width_training(dev, cfg, rec)
+    phase13f_lm_paths(dev, cfg, params, rec.pop("tok"), rec)
     full_width_decode(dev, cfg, params, rec)
     del params
     torch.cuda.empty_cache()
     train_crash_resume(dev, example.PRESETS["100m"], rec)
     reduced_card_vs_cpu(dev, rec)
+    phase13g_q8(dev, rec)
     launches = kernel_counts()
     rec["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 11: {rec['phase_s']:.1f} s; kernel launches on the trainer path "
@@ -3184,10 +3386,11 @@ def model_steps(step, params, opt_state, batch, what, n=3):
     return rows
 
 
-def gnn_cell(dev, arch, shape, batch_fn, what, sharded=False):
+def gnn_cell(dev, arch, shape, batch_fn, what, sharded=None):
     """A GNN config at full width (f32, as configured) on one cell: init on
-    the card from a seed, three AdamW steps on one batch; with ``sharded``,
-    phase 13b's sharded step against a fourth."""
+    the card from a seed, three AdamW steps on one batch; with ``sharded``
+    (its phase tag, "13b" or "13h"), phase 13b's sharded step against a
+    fourth."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -3213,11 +3416,11 @@ def gnn_cell(dev, arch, shape, batch_fn, what, sharded=False):
     if sharded:
         from repro_torch.optim.adamw import opt_state_specs
 
-        out["13b"] = phase13b_sharded_vs_plain(
+        out[sharded] = phase13b_sharded_vs_plain(
             dev, f"{arch} x {shape.name}", step, params, opt_state, batch,
             lambda m: gnn.param_specs(cfg, F, m),
             lambda m: opt_state_specs(gnn.param_specs(cfg, F, m), opt, m),
-            lambda m: gnn.input_specs(cfg, shape, m), GNN_LR)
+            lambda m: gnn.input_specs(cfg, shape, m), GNN_LR, tag=sharded)
     return out
 
 
@@ -3324,7 +3527,8 @@ def phase12_full_graph_sm(dev):
     for arch in ("gatedgcn", "graphcast"):
         shape = next(s for s in get_arch(arch).shapes if s.name == "full_graph_sm")
         out[arch] = gnn_cell(dev, arch, shape,
-                             lambda c, s, g: gnn_batch(c, s, g, dev), f"12b {arch} x full_graph_sm")
+                             lambda c, s, g: gnn_batch(c, s, g, dev), f"12b {arch} x full_graph_sm",
+                             sharded="13h" if arch == "graphcast" else None)
     return out
 
 
@@ -3335,7 +3539,7 @@ def phase12c_schnet(dev):
 
     shape = next(s for s in get_arch("schnet").shapes if s.name == "molecule")
     return gnn_cell(dev, "schnet", shape, lambda c, s, g: gnn_batch(c, s, g, dev),
-                    "12c schnet x molecule (G 128, batched)")
+                    "12c schnet x molecule (G 128, batched)", sharded="13h")
 
 
 def phase12d_ogb_products(dev):
@@ -3344,7 +3548,7 @@ def phase12d_ogb_products(dev):
 
     shape = next(s for s in get_arch("graphsage-reddit").shapes if s.name == "ogb_products")
     return gnn_cell(dev, "graphsage-reddit", shape, lambda c, s, g: gnn_batch(c, s, g, dev),
-                    "12d graphsage-reddit x ogb_products (full graph)", sharded=True)
+                    "12d graphsage-reddit x ogb_products (full graph)", sharded="13b")
 
 
 def phase12e_steiner_sampled(dev, h, root, steps=8, n_seeds=12):
@@ -3496,6 +3700,8 @@ def phase12f_mind(dev):
         raise AssertionError(f"serve_p99 scores {tuple(scores.shape)}")
     log(f"phase 12f: mind x serve_p99 (B {B}, 256 candidates): {len(times)} calls, p50 "
         f"{rec['serve_p99']['p50_ms']:.3f} ms, p99 {rec['serve_p99']['p99_ms']:.3f} ms")
+    rec["13i_serve_p99"] = phase13i_sharded_serving(dev, cfg, shapes["serve_p99"], serve, params,
+                                                    sb, scores, times)
     # serve_bulk: B 262,144 with 256 candidates ((B, 256, 64) f32 gathered)
     bulk = on_card({k: np.concatenate([b[k] for b in bulk_np]) for k in ("hist_ids",
                                                                           "hist_mask")})
@@ -3524,7 +3730,43 @@ def phase12f_mind(dev):
     rec["retrieval_cand"] = {"candidates": n_cand, "p50_ms": percentile(times, 50) * 1e3}
     log(f"phase 12f: mind x retrieval_cand ({n_cand} candidates): p50 "
         f"{rec['retrieval_cand']['p50_ms']:.3f} ms over {len(times)} calls")
+    rec["13i_retrieval_cand"] = phase13i_sharded_serving(
+        dev, cfg, shapes["retrieval_cand"], retrieve, params, rb, rs, times)
     return rec
+
+
+def phase13i_sharded_serving(dev, cfg, shape, serve, params, batch, want, plain_times):
+    """13i: a MIND serving cell through the sharded path on the (1, 1) mesh
+    (parameters by ``param_specs``, the batch by ``input_specs``): the
+    scores within 1e-5 of max of the plain path's, the same number of
+    calls timed, p50 and peak beside the plain path's."""
+    import torch
+
+    from repro_torch.distributed.sharding import full
+    from repro_torch.models import recsys
+
+    mesh = one_rank_mesh(dev)
+    dparams = wrap(params, recsys.param_specs(cfg, mesh))
+    ispecs = recsys.input_specs(cfg, shape, mesh)
+    dbatch = {k: ispecs[k].sharding.distribute(v) for k, v in batch.items()}
+    times = [timed(serve, dparams, dbatch)[1] for _ in range(len(plain_times) + 1)][1:]
+    torch.cuda.reset_peak_memory_stats()
+    got = full(serve(dparams, dbatch))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    serve(params, batch)
+    peak_u = torch.cuda.max_memory_allocated() / 1e9
+    err = rel_err(got, want)
+    out = {"calls": len(times), "p50_ms": percentile(times, 50) * 1e3,
+           "p50_ms_plain": percentile(plain_times, 50) * 1e3, "max_err": err, "peak_gb": peak,
+           "peak_gb_plain": peak_u}
+    log(f"phase 13i: mind x {shape.name} through sharded serving on the (1, 1) mesh: scores "
+        f"{tuple(got.shape)} within {err:.2e} of max of the plain ones (at most 1e-5); p50 "
+        f"{out['p50_ms']:.3f} ms against {out['p50_ms_plain']:.3f} ms plain over "
+        f"{len(times)} calls; peak {peak:.3f} GB against {peak_u:.3f} GB")
+    if tuple(got.shape) != tuple(want.shape) or not err <= 1e-5:
+        raise AssertionError(f"13i {shape.name}: {out}")
+    return out
 
 
 def close_tree(got, want, atol_frac, what, scale=None):
@@ -3789,7 +4031,8 @@ def main(argv=None) -> int:
     finally:
         graph_job.stop()
     done("12")
-    # ---- phase 13e (13a, 13c and 13d ran inside phase 11, 13b inside phase 12)
+    # ---- phase 13e (13a, 13c, 13d, 13f and 13g ran inside phase 11, 13b, 13h and 13i
+    # inside phase 12)
     state_rec = phase13e_state_table(dev)
     done("13e")
 

@@ -120,24 +120,26 @@ def sanitize_spec(mesh, shape: Sequence[int], spec: Sequence) -> P:
     return P(*out)
 
 
-def _entry_axes(entry) -> Tuple[str, ...]:
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes a spec entry names (none, one, or a tuple)."""
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def placements(mesh, spec: Sequence, partial: Sequence[str] = ()) -> tuple:
+def placements(mesh, spec: Sequence, partial: Sequence[str] = (), partial_op: str = "sum") -> tuple:
     """DTensor placements of ``spec`` on ``mesh``: one per mesh dim,
-    ``Shard(i)`` where tensor dim ``i``'s entry names that axis, ``Partial()``
-    for an axis in ``partial`` (a sum still to be taken over it), else
-    ``Replicate()``; an axis of size one is always ``Replicate()``."""
+    ``Shard(i)`` where tensor dim ``i``'s entry names that axis,
+    ``Partial(partial_op)`` for an axis in ``partial`` (a reduction still to
+    be taken over it), else ``Replicate()``; an axis of size one is always
+    ``Replicate()``."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     names = axis_names(mesh)
     sizes = mesh_shape(mesh)
     where: Dict[str, int] = {}
     for i, entry in enumerate(spec):
-        axes = _entry_axes(entry)
+        axes = entry_axes(entry)
         order = [names.index(a) for a in axes]
         if order != sorted(order):
             raise ValueError(f"spec entry {entry!r} lists its axes out of the mesh's "
@@ -153,7 +155,7 @@ def placements(mesh, spec: Sequence, partial: Sequence[str] = ()) -> tuple:
         elif a in where:
             out.append(Shard(where[a]))
         elif a in partial:
-            out.append(Partial())
+            out.append(Partial(partial_op))
         else:
             out.append(Replicate())
     return tuple(out)
@@ -256,7 +258,7 @@ def _to_spec(x, spec, *, strict: bool = False):
 
 
 def local_call(fn, args: Sequence[Any], in_specs: Sequence, out_specs, *,
-               partial: Sequence[str] = ()):
+               partial: Sequence[str] = (), partial_op: str = "sum"):
     """``fn`` on this rank's local shards: the SPMD body between
     constraints (the reference lets XLA partition each op; the port names
     each piece's layout and runs it as plain PyTorch).
@@ -264,33 +266,50 @@ def local_call(fn, args: Sequence[Any], in_specs: Sequence, out_specs, *,
     Every DTensor in ``args`` (or in a dict of them) whose ``in_specs``
     entry is a spec is first redistributed to it (a gather where the piece
     needs more than the shard; the spec must split the tensor evenly) and
-    handed to ``fn`` as its local tensor; other args pass as they are.
+    handed to ``fn`` as its local tensor; other args pass as they are.  A
+    dict's entry is one spec for every leaf or a dict of specs by key.
     ``fn``'s output (a tensor or a tuple of them) is wrapped back with
-    ``out_specs`` (a spec or a tuple of specs), ``Partial()`` on the axes in
-    ``partial`` (each rank holds a term of a sum over them).  With no
+    ``out_specs`` (a spec or a tuple of specs), ``Partial(partial_op)`` on
+    the axes in ``partial`` (each rank holds a term of a sum, or of a max,
+    over them).  With no
     DTensor among ``args`` it is ``fn(*args)``: one body serves the sharded
     step and the one-device step.
 
     Gradients: an input replicated over a mesh axis on which an output is
     split (sharded or partial) gets a partial gradient there (each rank
     differentiates its own part), reduced by the redistribute's backward.
+    That holds only if every output is split on that axis (an output
+    replicated there would bring each rank the whole gradient), so a piece
+    whose outputs differ there raises.
     """
     from repro_torch.tree import tree_leaves
 
-    mesh = next((t.device_mesh for a in args for t in tree_leaves(a) if is_dtensor(t)), None)
+    def leaves(a):
+        return [t for x in a for t in leaves(x)] if isinstance(a, tuple) else tree_leaves(a)
+
+    mesh = next((t.device_mesh for a in args for t in leaves(a) if is_dtensor(t)), None)
     if mesh is None:  # plain tensors: the one-device body itself
-        return fn(*args)
+        return fn(*(_alias(a) for a in args))
 
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     single = isinstance(out_specs, P) or not out_specs or not isinstance(out_specs[0], (tuple, list))
     outs_spec = [out_specs] if single else list(out_specs)
-    out_pl = [placements(mesh, s, partial) for s in outs_spec]
+    out_pl = [placements(mesh, s, partial, partial_op) for s in outs_spec]
     split = {j for pl in out_pl for j, p in enumerate(pl) if isinstance(p, (Shard, Partial))}
+    if any(isinstance(pl[j], Replicate) for pl in out_pl for j in split):
+        raise ValueError(f"outputs {out_pl} split and replicated on one mesh axis: their "
+                         "inputs' gradients would be neither whole nor partial")
 
     def localize(a, spec):
-        if isinstance(a, dict):  # a tree of parameters: every leaf under spec
+        if isinstance(a, dict):  # a tree of parameters: one spec, or one for each key
+            if isinstance(spec, dict):
+                return {k: localize(v, spec[k]) for k, v in a.items()}
             return {k: localize(v, spec) for k, v in a.items()}
+        if isinstance(a, tuple):  # a tuple of tensors: one spec, or a tuple of them
+            if spec is None or isinstance(spec, P):
+                return tuple(localize(v, spec) for v in a)
+            return tuple(localize(v, s) for v, s in zip(a, spec))
         if spec is None or not is_dtensor(a):
             return a
         a = _to_spec(a, spec, strict=True)
@@ -306,6 +325,63 @@ def local_call(fn, args: Sequence[Any], in_specs: Sequence, out_specs, *,
     wrapped = [DTensor.from_local(o, mesh, pl, run_check=False)
                for o, pl in zip(outs, out_pl)]
     return wrapped[0] if single else tuple(wrapped)
+
+
+def _alias(a):
+    """A differentiable input as a view of itself: the piece's gradient of
+    it is summed inside the piece first and reaches it as one term, as it
+    does through ``to_local`` on DTensors (so a piece on a (1, 1) mesh sums
+    its gradients in the one-device order, bit for bit)."""
+    if isinstance(a, dict):
+        return {k: _alias(v) for k, v in a.items()}
+    if isinstance(a, tuple):
+        return tuple(_alias(v) for v in a)
+    return a.view_as(a) if isinstance(a, torch.Tensor) and a.requires_grad else a
+
+
+def model_spec(t, dims: Sequence[int] = ()) -> P:
+    """The tensor-parallel layout of a weight: ``t``'s split over "model"
+    alone where it splits one of ``dims`` (P() otherwise, and for a plain
+    tensor).  As a ``local_call`` in-spec it gathers the weight over every
+    other axis (the ZeRO axes) and keeps the "model" shard."""
+    from torch.distributed.tensor import Shard
+
+    if not is_dtensor(t) or "model" not in t.device_mesh.mesh_dim_names:
+        return P()
+    p = t.placements[t.device_mesh.mesh_dim_names.index("model")]
+    if not isinstance(p, Shard) or p.dim not in dims:
+        return P()
+    return P(*("model" if i == p.dim else None for i in range(t.ndim)))
+
+
+def is_split(spec: Sequence, axis: str = "model") -> bool:
+    """Whether a spec splits some dim over ``axis``."""
+    return any(axis in entry_axes(e) for e in spec)
+
+
+def model_index(x) -> int:
+    """This rank's position along "model" of ``x``'s mesh (0 for a plain
+    tensor or a mesh without that axis)."""
+    if not is_dtensor(x) or "model" not in x.device_mesh.mesh_dim_names:
+        return 0
+    return axes_index(x.device_mesh, ("model",))
+
+
+def model_size(x) -> int:
+    """The size of "model" on ``x``'s mesh (1 for a plain tensor)."""
+    if not is_dtensor(x):
+        return 1
+    return mesh_shape(x.device_mesh).get("model", 1)
+
+
+def spec_of(t) -> P:
+    """A DTensor's placements as a spec (its shards only)."""
+    names = t.device_mesh.mesh_dim_names
+    spec = [[] for _ in range(t.ndim)]
+    for j, p in enumerate(t.placements):
+        if getattr(p, "dim", None) is not None and p.is_shard():
+            spec[p.dim].append(names[j])
+    return P(*spec)
 
 
 def axes_index(mesh, axes: Sequence[str]) -> int:
@@ -329,6 +405,18 @@ class ShapeDtypeStruct:
 
     def __repr__(self) -> str:
         return f"ShapeDtypeStruct({self.shape}, {self.dtype}, {self.sharding.spec!r})"
+
+
+def zeros_from_struct(s: ShapeDtypeStruct, *, device=None):
+    """A DTensor of zeros laid out by ``s``: each rank allocates its own
+    block only (on ``device``, by default the mesh's)."""
+    from torch.distributed.tensor import DTensor
+
+    sh = s.sharding
+    local = torch.zeros(sh.shard_shape(s.shape), dtype=s.dtype,
+                        device=device or mesh_device(sh.mesh))
+    return DTensor.from_local(local, sh.mesh, sh.placements, run_check=False,
+                              shape=s.shape, stride=contiguous_stride(s.shape))
 
 
 def distribute_tree(tree, shardings, *, device=None):

@@ -47,7 +47,12 @@ def _mesh(shape: Sequence[int], axes: Sequence[str], device: str):
     if device_type == "cuda" and not torch.cuda.is_initialized():
         torch.cuda.set_device(dist.get_rank() % max(torch.cuda.device_count(), 1))
     # more ranks than needed (e.g. 512 ranks, single-pod 256): the first ones
-    return DeviceMesh(device_type, torch.arange(need).reshape(shape), mesh_dim_names=axes)
+    mesh = DeviceMesh(device_type, torch.arange(need).reshape(shape), mesh_dim_names=axes)
+    if mesh.ndim > 1:
+        # the group over every axis (the 8-bit AdamW's exchange), made here
+        # on every rank in the same order, and cached on the mesh
+        mesh._flatten()
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):

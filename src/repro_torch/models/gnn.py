@@ -25,12 +25,13 @@ reference's gather would clamp.
 Distribution (``param_specs``, ``input_specs``, ``make_specs``): edges
 sharded over every mesh axis, node features over the dp axes' rows with
 the feature dim over "model" where divisible.  On DTensors with
-``dp_axes`` the full-graph GraphSAGE and GatedGCN steps run SPMD: each
-rank gathers the node table, computes the messages of its edge shard and
-scatters them into partial node sums, which the node constraint reduces
-onto the row shards; the node updates run on each rank's rows.  (The
-sharded SchNet and GraphCast steps are not ported: their constraints are
-no-ops on plain tensors and they refuse DTensors.)
+``dp_axes`` every step runs SPMD: each rank gathers the node table,
+computes the messages of its edge shard and scatters them into partial
+node sums, which the node constraint reduces onto the row shards; the node
+updates run on each rank's rows (GraphSAGE, GatedGCN, SchNet on a graph,
+GraphCast's grid, mesh and their edges; a node or edge count that does not
+split over the dp axes is held whole, as ``sanitize_spec`` drops the
+axis).  SchNet's molecule batch runs each rank's molecules.
 """
 
 from __future__ import annotations
@@ -44,8 +45,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import GNNConfig, ShapeSpec
 from repro_torch.distributed.sharding import (P, NamedSharding, ShapeDtypeStruct, constrain,
-                                              full, is_dtensor, like, local_call,
-                                              named_sharding)
+                                              entry_axes, full, is_dtensor, like,
+                                              local_call, named_sharding, sanitize_spec)
 from repro_torch.optim import adamw_update
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -73,9 +74,17 @@ def scatter_sum(msg: torch.Tensor, dst: torch.Tensor, n: int) -> torch.Tensor:
     return _ScatterSum.apply(msg, dst, n)
 
 
+def counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """How often each of ``0 .. n-1`` occurs in ``idx``, exactly (a
+    ``bincount`` whose shape is known ahead, not the data's)."""
+    idx = idx.long()
+    return torch.zeros(n, dtype=torch.long, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx))
+
+
 def seg_mean(msg, dst, n):
     s = scatter_sum(msg, dst, n)
-    c = torch.bincount(dst, minlength=n).to(msg.dtype)[:, None]  # exact counts
+    c = counts(dst, n).to(msg.dtype)[:, None]  # exact counts
     return s / torch.clamp(c, min=1.0)
 
 
@@ -257,7 +266,7 @@ def sage_forward_full(cfg, params, x, edges, dp_axes=()):
     def messages(h, e):
         msg = _gather(h, e[:, 0])
         s = scatter_sum(msg, e[:, 1], n)
-        c = torch.bincount(e[:, 1], minlength=n).to(msg.dtype)[:, None]  # exact counts
+        c = counts(e[:, 1], n).to(msg.dtype)[:, None]  # exact counts
         return s, c
 
     def node(h, s, c, p):
@@ -353,10 +362,18 @@ def rbf_centers(cfg, dtype=torch.float32, device=None):
     return torch.cat([torch.arange(div, dtype=dtype, device=device) * scale, stop.reshape(1)])
 
 
-def _unported(name, *xs):
-    if any(is_dtensor(x) for x in xs):
-        raise NotImplementedError(f"the sharded {name} step is not ported; run it on "
-                                  "plain tensors")
+def _fit(ref, shape, spec) -> P:
+    """``spec`` with the axes that do not split ``shape`` dropped, on the
+    mesh of ``ref`` (``spec`` itself for a plain tensor)."""
+    return sanitize_spec(ref.device_mesh, shape, spec) if is_dtensor(ref) else P(*spec)
+
+
+def _edge_layout(e, eax):
+    """(in-spec, partial axes) of an edge array split over ``eax`` as far as
+    its length allows: the messages of each rank's edges are a term of a sum
+    over exactly the axes that split them."""
+    spec = _fit(e, e.shape, P(eax, None))
+    return spec, entry_axes(spec[0])
 
 
 def schnet_forward(cfg, params, z_feat, pos, edges, dp_axes=()):
@@ -366,29 +383,50 @@ def schnet_forward(cfg, params, z_feat, pos, edges, dp_axes=()):
     the sum-pooled energy of the graph.  With a leading molecule axis
     (z_feat (G, N, F), pos (G, N, 3)) every molecule shares the edge
     template and the result is (G,): the reference's ``jax.vmap``.
-    """
-    _unported("SchNet", z_feat, pos, edges)
-    n = z_feat.shape[-2]
-    src, dst = edges[:, 0], edges[:, 1]
-    h = z_feat @ params["embed"]
-    d = torch.linalg.vector_norm(_gather(pos, src) - _gather(pos, dst) + 1e-9, dim=-1)
-    mu = rbf_centers(cfg, h.dtype, h.device)
-    gamma = 10.0 / cfg.cutoff
-    rbf = torch.exp(-gamma * torch.square(d[..., None] - mu))  # (..., E, rbf)
-    # smooth cutoff
-    fcut = 0.5 * (torch.cos(math.pi * torch.clamp(d / cfg.cutoff, 0, 1)) + 1.0)
 
-    def interaction(h, p):
+    On DTensors (a graph, not a molecule batch) each rank's edge shard
+    computes its geometry and filters once, then per interaction its
+    messages into partial node sums; the node updates run on each rank's
+    rows and the energy is summed over them.
+    """
+    _check_dp(dp_axes, z_feat, pos, edges)
+    n = z_feat.shape[-2]
+    nspec, _, rows, _, eax = _layouts(dp_axes, cfg.d_hidden)
+    es, ep = _edge_layout(edges, eax)
+    rep = P()
+    h = _cons(local_call(lambda z, w: z @ w, (z_feat, params["embed"]), (rows, rep), rows),
+              nspec)
+
+    def geometry(pos, e):
+        d = torch.linalg.vector_norm(_gather(pos, e[:, 0]) - _gather(pos, e[:, 1]) + 1e-9,
+                                     dim=-1)
+        mu = rbf_centers(cfg, pos.dtype, pos.device)
+        gamma = 10.0 / cfg.cutoff
+        rbf = torch.exp(-gamma * torch.square(d[..., None] - mu))  # (..., E, rbf)
+        # smooth cutoff
+        return rbf, 0.5 * (torch.cos(math.pi * torch.clamp(d / cfg.cutoff, 0, 1)) + 1.0)
+
+    rbf, fcut = local_call(geometry, (pos, edges), (rep, es), (es, P(es[0])))
+
+    def messages(h, rbf, fcut, e, p):
         wfil = softplus(rbf @ p["filter1"]) @ p["filter2"]
         wfil = wfil * fcut[..., None]
-        m = _gather(h @ p["in"], src) * wfil
-        agg = scatter_sum(m, dst, n)
-        return h + softplus(agg @ p["out1"]) @ p["out2"]
+        m = _gather(h @ p["in"], e[:, 0]) * wfil
+        return scatter_sum(m, e[:, 1], n)
+
+    def interaction(h, p):
+        agg = local_call(messages, (h, rbf, fcut, edges, p), (rep, es, P(es[0]), es, rep), rep,
+                         partial=ep)
+        h = local_call(lambda h, agg, p: h + softplus(agg @ p["out1"]) @ p["out2"],
+                       (h, agg, p), (rows, rows, rep), rows)
+        return _cons(h, nspec)
 
     for i in range(cfg.n_interactions):
         h = _remat(interaction, h, params[f"i{i}"])
-    e_atom = softplus(h @ params["head1"]) @ params["head2"]
-    return e_atom.sum(dim=(-2, -1))
+    head = {k: params[k] for k in ("head1", "head2")}
+    e = local_call(lambda h, w: (softplus(h @ w["head1"]) @ w["head2"]).sum(dim=(-2, -1)),
+                   (h, head), (rows, rep), P(), partial=tuple(dp_axes))
+    return full(e)
 
 
 def graphcast_forward(cfg, params, grid_x, g2m, mesh_e, m2g, n_mesh, dp_axes=()):
@@ -396,46 +434,81 @@ def graphcast_forward(cfg, params, grid_x, g2m, mesh_e, m2g, n_mesh, dp_axes=())
 
     grid_x: (Ng, F); g2m/m2g/mesh_e: (E?, 2) index pairs + implicit unit
     edge features; n_mesh: mesh node count.  Returns (Ng, n_vars).
-    """
-    _unported("GraphCast", grid_x, g2m, mesh_e, m2g)
-    ng = grid_x.shape[0]
-    h_grid = F.relu(grid_x @ params["enc_grid"])
 
-    def efeat(e, n_src_nodes):
+    On DTensors each rank's shard of every edge array sends its messages
+    into partial sums over the target nodes (the source table gathered);
+    the grid's and the mesh's node updates run on each rank's rows (the
+    mesh's whole where n_mesh does not split over the dp axes).
+    """
+    _check_dp(dp_axes, grid_x, g2m, mesh_e, m2g)
+    ng = grid_x.shape[0]
+    h = cfg.d_hidden
+    nspec, _, _, _, eax = _layouts(dp_axes, h)
+    rep = P()
+    grows = _fit(grid_x, grid_x.shape, P(dp_axes, None))
+    mrows = _fit(grid_x, (n_mesh, h), P(dp_axes, None))
+    (gs, gp), (ms, mp), (ds, dq) = (_edge_layout(e, eax) for e in (g2m, mesh_e, m2g))
+
+    def efeat(e, n_src_nodes, dtype):
         # cheap structural edge features (degree-free): normalized ids
-        one = torch.ones((e.shape[0],), dtype=h_grid.dtype, device=e.device)
-        return torch.stack([e[:, 0].to(h_grid.dtype) / max(n_src_nodes, 1),
-                            e[:, 1].to(h_grid.dtype) / max(n_mesh, 1), one, one * 0], -1)
+        one = torch.ones((e.shape[0],), dtype=dtype, device=e.device)
+        return torch.stack([e[:, 0].to(dtype) / max(n_src_nodes, 1),
+                            e[:, 1].to(dtype) / max(n_mesh, 1), one, one * 0], -1)
+
+    h_grid = _cons(local_call(lambda x, w: F.relu(x @ w), (grid_x, params["enc_grid"]),
+                              (grows, rep), grows), nspec)
+    enc = {k: params[k] for k in ("enc_g2m", "g2m_edge")}
 
     # encode grid → mesh (recomputed in the backward pass like every layer)
     def encode(h_grid):
-        he = F.relu(efeat(g2m, ng) @ params["enc_g2m"])
-        msg = F.relu(torch.cat([_gather(h_grid, g2m[:, 0]), he, he], -1) @ params["g2m_edge"])
-        h_mesh = scatter_sum(msg, g2m[:, 1], n_mesh)
-        return F.relu(torch.cat([h_mesh, h_mesh], -1) @ params["g2m_node"])
+        def msgs(hg, e, w):
+            he = F.relu(efeat(e, ng, hg.dtype) @ w["enc_g2m"])
+            msg = F.relu(torch.cat([_gather(hg, e[:, 0]), he, he], -1) @ w["g2m_edge"])
+            return scatter_sum(msg, e[:, 1], n_mesh)
 
-    h_mesh = _remat(encode, h_grid)
+        h_mesh = local_call(msgs, (h_grid, g2m, enc), (rep, gs, rep), rep, partial=gp)
+        return local_call(lambda hm, w: F.relu(torch.cat([hm, hm], -1) @ w),
+                          (h_mesh, params["g2m_node"]), (mrows, rep), mrows)
+
+    h_mesh = _cons(_remat(encode, h_grid), nspec)
     # process on the mesh
-    e_h = F.relu(efeat(mesh_e, n_mesh) @ params["enc_mesh"])
+    e_h = local_call(lambda e, w: F.relu(efeat(e, n_mesh, w.dtype) @ w),
+                     (mesh_e, params["enc_mesh"]), (ms, rep), ms)
+
+    def edge(hm, eh, e, p):
+        em = torch.cat([eh, _gather(hm, e[:, 0]), _gather(hm, e[:, 1])], -1)
+        eh = eh + F.relu(F.relu(em @ p["edge1"]) @ p["edge2"])
+        return eh, scatter_sum(eh, e[:, 1], n_mesh)
+
+    def node(hm, agg, p):
+        nm = torch.cat([hm, agg], -1)
+        return hm + F.relu(F.relu(nm @ p["node1"]) @ p["node2"])
 
     def processor(h_mesh, e_h, p):
-        em = torch.cat([e_h, _gather(h_mesh, mesh_e[:, 0]), _gather(h_mesh, mesh_e[:, 1])], -1)
-        e_h = e_h + F.relu(F.relu(em @ p["edge1"]) @ p["edge2"])
-        agg = scatter_sum(e_h, mesh_e[:, 1], n_mesh)
-        nm = torch.cat([h_mesh, agg], -1)
-        return h_mesh + F.relu(F.relu(nm @ p["node1"]) @ p["node2"]), e_h
+        e_h, agg = local_call(edge, (h_mesh, e_h, mesh_e, p), (rep, ms, ms, rep), (ms, rep),
+                              partial=mp)
+        h_mesh = local_call(node, (h_mesh, agg, p), (mrows, mrows, rep), mrows)
+        return _cons(h_mesh, nspec), e_h
 
     for i in range(cfg.n_layers):
         h_mesh, e_h = _remat(processor, h_mesh, e_h, params[f"p{i}"])
 
     # decode mesh → grid
+    dec = {k: params[k] for k in ("enc_m2g", "m2g_edge", "m2g_node", "dec1", "dec2")}
+
     def decode(h_mesh, h_grid):
-        he2 = F.relu(efeat(m2g, n_mesh) @ params["enc_m2g"])
-        msg2 = F.relu(torch.cat([_gather(h_mesh, m2g[:, 0]), he2, he2], -1)
-                      @ params["m2g_edge"])
-        h_out = scatter_sum(msg2, m2g[:, 1], ng)
-        h_out = F.relu(torch.cat([h_grid, h_out], -1) @ params["m2g_node"])
-        return F.relu(h_out @ params["dec1"]) @ params["dec2"]
+        def msgs(hm, e, w):
+            he2 = F.relu(efeat(e, n_mesh, hm.dtype) @ w["enc_m2g"])
+            msg2 = F.relu(torch.cat([_gather(hm, e[:, 0]), he2, he2], -1) @ w["m2g_edge"])
+            return scatter_sum(msg2, e[:, 1], ng)
+
+        h_out = local_call(msgs, (h_mesh, m2g, dec), (rep, ds, rep), rep, partial=dq)
+
+        def out(hg, ho, w):
+            ho = F.relu(torch.cat([hg, ho], -1) @ w["m2g_node"])
+            return F.relu(ho @ w["dec1"]) @ w["dec2"]
+
+        return local_call(out, (h_grid, h_out, dec), (grows, grows, rep), grows)
 
     return _remat(decode, h_mesh, h_grid)
 
@@ -482,15 +555,31 @@ def loss_fn(cfg: GNNConfig, shape: ShapeSpec, params, batch, dp_axes=()) -> torc
                                   dp_axes)
     elif cfg.kind == "schnet":
         if shape.kind == "gnn_batched":
-            e = schnet_forward(cfg, params, batch["z"], batch["pos"], batch["edges_t"])
-            return torch.mean(torch.square(e - batch["energy"]))
+            # each rank's molecules: its mean, weighted by its share of them
+            G = batch["z"].shape[0]
+            mol = P(dp_axes, None, None)
+
+            def local(p, z, pos, e, en):
+                err = schnet_forward(cfg, p, z, pos, e) - en
+                return torch.mean(torch.square(err)) * (en.shape[0] / G)
+
+            _check_dp(dp_axes, batch["z"])
+            return full(local_call(local, (params, batch["z"], batch["pos"], batch["edges_t"],
+                                           batch["energy"]),
+                                   (P(), mol, mol, P(), P(dp_axes)), P(),
+                                   partial=tuple(dp_axes)))
         e = schnet_forward(cfg, params, batch["x"], batch["pos"], batch["edges"], dp_axes)
-        return torch.square(e - batch["energy_sum"])
+        return torch.square(e - full(batch["energy_sum"]))
     elif cfg.kind == "graphcast":
         out = graphcast_forward(cfg, params, batch["x"], batch["g2m"], batch["mesh_e"],
                                 batch["m2g"], n_mesh=batch["x"].shape[0] // 4 + 1,
                                 dp_axes=dp_axes)
-        return torch.mean(torch.square(out - batch["target"]))
+        n = out.shape[0]
+        rows = _fit(out, out.shape, P(dp_axes, None))
+        return full(local_call(
+            lambda o, t: torch.mean(torch.square(o - t)) * (o.shape[0] / n),
+            (out, batch["target"]), (rows, rows), P(),
+            partial=entry_axes(rows[0])))
     else:
         raise ValueError(cfg.kind)
     # each rank's rows: its mean, weighted by its share of the nodes (the

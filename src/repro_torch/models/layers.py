@@ -4,8 +4,15 @@ The PyTorch counterpart of ``repro.models.layers``, with the same
 arithmetic in the same dtypes: parameters are dicts of tensors under the
 reference's names, and attention is the same KV-chunked online softmax
 (Rabe–Staats) with its accumulator in ``v.dtype``, so the 32K-prefill
-cells never materialize an S×S score matrix.  The reference's sharding
-hints have no counterpart on one device.
+cells never materialize an S×S score matrix.
+
+Tensor parallelism: the attention functions take the local shards of a
+rank of "model" (``shard`` is its index there).  Query heads split over
+"model" run locally; KV projections given whole are cut to the KV heads
+the local query heads read; an output projection split over head_dim reads
+its slice of the heads' outputs.  Given whole weights they are the
+one-device functions.  Cache positions are tensors read on the device, so
+no step syncs with the host.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
-from repro_torch.distributed.sharding import P, constrain, local_call
+from repro_torch.distributed.sharding import P, constrain, is_split, local_call, model_spec
 
 NEG_INF = float("-inf")
 
@@ -113,29 +120,72 @@ def gqa_attention(
     positions: torch.Tensor,
     *,
     kv_cache: Optional[tuple] = None,  # (k, v[, scales]) running cache
-    cache_len: int = 0,
+    cache_len=0,
     kv_chunk: int = 1024,
+    shard: int = 0,
+    q_rows: Optional[slice] = None,
 ):
     """Returns (out, kv): with a cache, kv is the cache with this step's keys
     and values written in place at ``cache_len`` (layout (B, Smax, Hkv, D));
-    without one, the step's (k, v)."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    without one, the step's (k, v).  On a rank's shards (see the module
+    docstring) ``out`` is its term of the sum over "model".  ``q_rows``
+    (no cache): only those query positions, against every key."""
+    p = _local_kv_heads(cfg, p, shard)
+    xq, pq = (x, positions) if q_rows is None else (x[:, q_rows], positions[:, q_rows])
+    q = torch.einsum("bsd,dhk->bshk", xq, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = rope(q, positions, cfg.rope_theta)
+    q = rope(q, pq, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
     if kv_cache is None:
-        out = chunked_attention(q, k, v, causal=True, kv_chunk=kv_chunk)
+        out = chunked_attention(q, k, v, causal=True, kv_chunk=kv_chunk,
+                                q_offset=0 if q_rows is None else q_rows.start)
         new_cache = (k, v)
     else:
         out, new_cache = _attend_with_cache(cfg, q, k, v, kv_cache, cache_len)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    y = torch.einsum("bshk,hkd->bsd", wo_slice(out, p["wo"], shard), p["wo"])
     return y, new_cache
+
+
+def wo_slice(out: torch.Tensor, wo: torch.Tensor, shard: int) -> torch.Tensor:
+    """The part of the heads' outputs (B, S, H, D) that a rank's block of
+    the output projection (H or H/m, D or D/m, d) reads."""
+    hl, dl = wo.shape[:2]
+    if hl != out.shape[2]:
+        out = out[:, :, shard * hl:(shard + 1) * hl]
+    if dl != out.shape[3]:
+        out = out[..., shard * dl:(shard + 1) * dl]
+    return out
+
+
+def _local_kv_heads(cfg: LMConfig, p: dict, shard: int) -> dict:
+    """Local query heads with whole KV projections: the KV projections cut
+    to the heads those query heads read (a contiguous run when the groups
+    line up, else one KV head for each query head)."""
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    hl = p["wq"].shape[1]
+    if hl == H or p["wk"].shape[1] != Hkv:
+        return p
+    g = H // Hkv
+    lo = shard * hl
+    if hl % g == 0:
+        sel = slice(lo // g, (lo + hl) // g)
+    elif g % hl == 0:
+        sel = slice(lo // g, lo // g + 1)
+    else:
+        sel = torch.arange(lo, lo + hl, device=p["wk"].device) // g
+    p = dict(p)
+    for k in ("wk", "wv"):
+        p[k] = p[k][:, sel]
+    for k in ("bk", "bv"):
+        if k in p:
+            p[k] = p[k][sel]
+    return p
 
 
 def _quant_int8(x: torch.Tensor):
@@ -152,11 +202,27 @@ def _dequant_int8(qx: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     return (qx.float() * scale.float()).to(dtype)
 
 
-def _write(cache: torch.Tensor, new: torch.Tensor, start: int) -> None:
+def _write(cache: torch.Tensor, new: torch.Tensor, start, *, first: int = 0,
+           total: Optional[int] = None) -> None:
     """``dynamic_update_slice`` along axis 1, in place (the start is clamped so
-    that the update fits, as the reference's)."""
-    start = max(0, min(int(start), cache.shape[1] - new.shape[1]))
-    cache[:, start:start + new.shape[1]] = new.to(cache.dtype)
+    that the update fits, as the reference's); ``start`` an int or a 0-d
+    tensor, read on the device.  ``cache`` may be the block of positions
+    ``[first, first + len)`` of a cache ``total`` long, split over its
+    sequence: then only the positions it holds are written."""
+    S, n = new.shape[1], cache.shape[1]
+    total = n if total is None else total
+    dev = cache.device
+    pos = torch.clamp(torch.as_tensor(start, device=dev), 0, total - S)
+    pos = pos + torch.arange(S, device=dev)
+    new = new.to(cache.dtype)
+    if first == 0 and total == n:
+        cache.index_copy_(1, pos, new)
+        return
+    loc = pos - first
+    hit = (loc >= 0) & (loc < n)
+    loc = torch.clamp(loc, 0, n - 1)
+    keep = hit.reshape(1, S, *([1] * (new.ndim - 2)))
+    cache.index_copy_(1, loc, torch.where(keep, new, cache.index_select(1, loc)))
 
 
 def _attend_with_cache(cfg: LMConfig, q, k_new, v_new, cache, cache_len,
@@ -173,12 +239,12 @@ def _attend_with_cache(cfg: LMConfig, q, k_new, v_new, cache, cache_len,
         vnq, vns = _quant_int8(v_new)
         for c, new in ((kq, knq), (ks, kns), (vq, vnq), (vs, vns)):
             _write(c, new, cache_len)
-        out = _decode_attention_q8(q, kq, ks, vq, vs, int(cache_len) + S, kv_chunk)
+        out = _decode_attention_q8(q, kq, ks, vq, vs, cache_len + S, kv_chunk)
         return out, (kq, ks, vq, vs)
     kc, vc = cache
     _write(kc, k_new, cache_len)
     _write(vc, v_new, cache_len)
-    out = _masked_decode_attention(q, kc, vc, int(cache_len) + S)
+    out = _masked_decode_attention(q, kc, vc, cache_len + S)
     return out, (kc, vc)
 
 
@@ -241,27 +307,23 @@ def mla_attention(
     positions: torch.Tensor,
     *,
     kv_cache: Optional[torch.Tensor] = None,  # (B, Smax, kv_lora + rope_dim)
-    cache_len: int = 0,
+    cache_len=0,
     kv_chunk: int = 1024,
+    cq: Optional[torch.Tensor] = None,
 ):
     """Multi-head Latent Attention [arXiv:2412.19437 §2.1].
 
     The cache stores only the compressed latent c_kv (kv_lora_rank) and the
-    decoupled RoPE key (qk_rope_head_dim); it is written in place.
+    decoupled RoPE key (qk_rope_head_dim); it is written in place.  ``cq``
+    is ``x @ wq_a`` where the caller has it (gathered from the column
+    shards of "model"); ``wq_b``, ``wk_b``, ``wv_b`` and ``wo`` may hold a
+    rank's heads, and ``out`` is then its term of the sum over "model".
     """
+    q, latent = mla_queries_latent(cfg, p, x, positions, cq)
     S = x.shape[1]
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     r = cfg.kv_lora_rank
-    # --- queries (low-rank)
-    cq = rmsnorm(torch.einsum("bsd,dr->bsr", x, p["wq_a"]), p["q_norm"])
-    q = torch.einsum("bsr,rhk->bshk", cq, p["wq_b"])  # (B, S, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    q_rope = rope(q_rope, positions, cfg.rope_theta)
-    # --- compressed KV latent + decoupled rope key
-    ckv_full = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])  # (B, S, r + dr)
-    ckv = rmsnorm(ckv_full[..., :r], p["kv_norm"])
-    k_rope = rope(ckv_full[..., r:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
-    latent = torch.cat([ckv, k_rope], dim=-1)  # (B, S, r + dr)
 
     scale = (dn + dr) ** -0.5
     if kv_cache is not None:
@@ -269,7 +331,7 @@ def mla_attention(
         # K/V are never expanded over the cache.
         _write(kv_cache, latent, cache_len)
         lat_all = kv_cache.to(x.dtype)
-        valid = int(cache_len) + S
+        valid = cache_len + S
         ckv_all = lat_all[..., :r]  # (B, Smax, r)
         kr_all = lat_all[..., r:]  # (B, Smax, dr)
         q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope, p["wk_b"])
@@ -293,11 +355,28 @@ def mla_attention(
     k_all = torch.cat(
         [k_nope, kr_all[:, :, None, :].expand(*k_nope.shape[:3], dr)], dim=-1
     )
-    qfull = torch.cat([q_nope, q_rope], dim=-1)
-    out = chunked_attention(qfull, k_all, v_all, causal=True, kv_chunk=kv_chunk,
+    out = chunked_attention(q, k_all, v_all, causal=True, kv_chunk=kv_chunk,
                             scale=scale)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, kv_cache
+
+
+def mla_queries_latent(cfg: LMConfig, p: dict, x, positions, cq=None):
+    """MLA's queries (B, S, H, dn + dr), their rope half rotated, and the
+    step's latent (B, S, r + dr): the normed c_kv and the rotated rope key."""
+    dn = cfg.qk_nope_head_dim
+    r = cfg.kv_lora_rank
+    # --- queries (low-rank)
+    if cq is None:
+        cq = torch.einsum("bsd,dr->bsr", x, p["wq_a"])
+    cq = rmsnorm(cq, p["q_norm"])
+    q = torch.einsum("bsr,rhk->bshk", cq, p["wq_b"])  # (B, S, H, dn + dr)
+    q = torch.cat([q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)], dim=-1)
+    # --- compressed KV latent + decoupled rope key
+    ckv_full = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])  # (B, S, r + dr)
+    ckv = rmsnorm(ckv_full[..., :r], p["kv_norm"])
+    k_rope = rope(ckv_full[..., r:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return q, torch.cat([ckv, k_rope], dim=-1)
 
 
 # ----------------------------------------------------------------------------
@@ -341,7 +420,8 @@ def _moe_route(cfg: LMConfig, router, xt):
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
     stk = flat_t[order]
-    counts = torch.bincount(se, minlength=E)
+    # exact counts with a shape known ahead (``bincount``'s is the data's)
+    counts = torch.zeros(E, dtype=se.dtype, device=dev).scatter_add_(0, se, torch.ones_like(se))
     starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)[:-1]])
     C = moe_capacity(cfg, T)
 
@@ -406,6 +486,10 @@ def moe_ffn(cfg: LMConfig, p: dict, x: torch.Tensor, dp_axes: tuple = ()) -> tor
     y = local_call(lambda ytk, tv: (ytk.reshape(-1, K, d) * tv[..., None].to(ytk.dtype)).sum(1),
                    (ytk, topv), (tok, tok), tok)
     if cfg.n_shared:
+        # column-split over "model" (ws1, ws3), row-split (ws2): partial sums
         shared = {k: p[k] for k in ("ws1", "ws2", "ws3")}
-        y = y + local_call(_moe_shared, (shared, xt), (rep, tok), tok)
+        specs = {"ws1": model_spec(p["ws1"], (1,)), "ws3": model_spec(p["ws3"], (1,)),
+                 "ws2": model_spec(p["ws2"], (0,))}
+        tp = ("model",) if is_split(specs["ws2"]) else ()
+        y = y + tok_c(local_call(_moe_shared, (shared, xt), (specs, tok), tok, partial=tp))
     return local_call(lambda y: y.reshape(-1, S, d), (y,), (tok,), P(dp_axes, None, None))

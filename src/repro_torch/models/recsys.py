@@ -12,11 +12,15 @@ here checks its ids and raises ``IndexError`` instead
 (:class:`repro_torch.data.recsys.BehaviorStream` keeps them in range).
 
 Sharding (``param_specs``, ``input_specs``): the item table is row-sharded
-over ("data", "model"), the batch over the dp axes.  On DTensors the train
+over ("data", "model"), the batch over the dp axes.  On DTensors every
 step runs SPMD: every rank looks up every id of the batch in the rows it
 holds (zeros elsewhere) and the sum over the table's axes lands on the
 batch rows; each rank then routes its own users, against the targets of
-the whole batch (the in-batch negatives).
+the whole batch (the in-batch negatives) in training, against its rows'
+candidates in serving.  Retrieval routes its one query on every rank and
+scores each rank's block of the candidates.  A sharded lookup fills an
+out-of-range id with NaN, as the reference's ``jnp.take`` does, instead of
+raising: no rank holds it, and the check would read the ids on the host.
 """
 
 from __future__ import annotations
@@ -28,8 +32,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import RecsysConfig, ShapeSpec
 from repro_torch.distributed.sharding import (P, NamedSharding, ShapeDtypeStruct, axes_index,
-                                              constrain, full, is_dtensor, like, local_call,
-                                              named_sharding)
+                                              constrain, entry_axes, full, is_dtensor, like,
+                                              local_call, named_sharding, sanitize_spec,
+                                              spec_of)
 from repro_torch.optim import adamw_update
 
 
@@ -134,7 +139,7 @@ def train_loss(cfg: RecsysConfig, params, batch):
     placements name the dp axes: each rank routes its own users against
     the targets of the whole batch (gathered)."""
     ids = batch["hist_ids"]
-    dp_axes = _entry(_spec(ids)[0]) if is_dtensor(ids) else ()
+    dp_axes = _dp(ids)
     e = _take(params["item_table"], ids, dp_axes)  # (B, L, d)
     tgt = _take(params["item_table"], batch["target_id"], dp_axes)  # (B, d)
     B = tgt.shape[0]
@@ -154,18 +159,9 @@ def train_loss(cfg: RecsysConfig, params, batch):
     return full(part)
 
 
-def _spec(t) -> P:
-    """A DTensor's placements as a spec."""
-    names = t.device_mesh.mesh_dim_names
-    spec = [[] for _ in range(t.ndim)]
-    for j, p in enumerate(t.placements):
-        if getattr(p, "dim", None) is not None:
-            spec[p.dim].append(names[j])
-    return P(*spec)
-
-
-def _entry(e) -> tuple:
-    return () if e is None else ((e,) if isinstance(e, str) else tuple(e))
+def _dp(t) -> tuple:
+    """The mesh axes a batch array's rows are split over (none if plain)."""
+    return entry_axes(spec_of(t)[0]) if is_dtensor(t) else ()
 
 
 def _take(table, ids, dp_axes):
@@ -173,40 +169,65 @@ def _take(table, ids, dp_axes):
     are gathered, each rank looks up the rows it holds (zeros elsewhere:
     every id hits one rank, so the sum over the table's axes is exact) and
     the sum lands on the batch rows of ``dp_axes``."""
-    row_axes = _entry(_spec(table)[0]) if is_dtensor(table) else ()
+    row_axes = entry_axes(spec_of(table)[0]) if is_dtensor(table) else ()
     n = table.shape[0]
     first = axes_index(table.device_mesh, row_axes) if row_axes else 0
 
     def look(tab, ids):
         if tab.shape[0] == n:  # the whole table on this rank
             return take(tab, ids)
-        if ids.numel() and bool(((ids < 0) | (ids >= n)).any()):
-            bad = ids[(ids < 0) | (ids >= n)][0]
-            raise IndexError(f"item id {int(bad)} outside [0, {n})")
         loc = ids.long() - first * tab.shape[0]
         hit = (loc >= 0) & (loc < tab.shape[0])
         e = tab.index_select(0, torch.where(hit, loc, 0).reshape(-1))
-        return e.reshape(*ids.shape, tab.shape[1]) * hit[..., None].to(e.dtype)
+        e = e.reshape(*ids.shape, tab.shape[1]) * hit[..., None].to(e.dtype)
+        if first == 0:  # an id no rank holds: NaN, once
+            e = torch.where(((ids < 0) | (ids >= n))[..., None], float("nan"), e)
+        return e
 
-    out = local_call(look, (table, ids), (_spec(table) if row_axes else P(), P()),
+    out = local_call(look, (table, ids), (spec_of(table) if row_axes else P(), P()),
                      P(*([None] * (ids.ndim + 1))), partial=row_axes)
-    return constrain(out, P(dp_axes, *([None] * ids.ndim)))
+    return constrain(out, _rows(out, dp_axes))
+
+
+def _rows(t, dp_axes) -> P:
+    """A batch array's rows over ``dp_axes`` (dropped where they do not
+    split them: retrieval's one query)."""
+    spec = P(dp_axes, *([None] * (t.ndim - 1)))
+    return sanitize_spec(t.device_mesh, t.shape, spec) if is_dtensor(t) else spec
+
+
+def _interests_rows(cfg: RecsysConfig, params, batch):
+    """The interest capsules of the batch's users on their rows (every
+    rank's copy where the rows are not split)."""
+    ids = batch["hist_ids"]
+    e = _take(params["item_table"], ids, _dp(ids))  # (B, L, d)
+    rows = _rows(e, _dp(ids))
+    caps = local_call(lambda e, m, w: _capsules(cfg, {"bilinear": w}, e, m),
+                      (e, batch["hist_mask"], params["bilinear"]), (rows, P(*rows[:2]), P()),
+                      rows)
+    return caps, rows
 
 
 def serve_scores(cfg: RecsysConfig, params, batch):
-    """Online inference: max-over-interests dot with per-request candidates."""
-    caps = interests(cfg, params, batch["hist_ids"], batch["hist_mask"])
-    cand = take(params["item_table"], batch["cand_ids"])  # (B, C, d)
-    s = torch.einsum("bkd,bcd->bkc", caps, cand)
-    return torch.amax(s, dim=1)  # (B, C)
+    """Online inference: max-over-interests dot with per-request candidates
+    (on DTensors each rank scores its rows)."""
+    caps, rows = _interests_rows(cfg, params, batch)
+    cand = _take(params["item_table"], batch["cand_ids"], _dp(batch["cand_ids"]))  # (B, C, d)
+    return local_call(lambda caps, cand: torch.amax(torch.einsum("bkd,bcd->bkc", caps, cand),
+                                                    dim=1),  # (B, C)
+                      (caps, cand), (rows, rows), P(*rows[:2]))
 
 
 def retrieval_scores(cfg: RecsysConfig, params, batch):
-    """One query against the candidate megabatch: batched dot, no loop."""
-    caps = interests(cfg, params, batch["hist_ids"], batch["hist_mask"])  # (1, K, d)
-    cand = take(params["item_table"], batch["cand_ids"])  # (C, d)
-    s = torch.einsum("kd,cd->kc", caps[0], cand)
-    return torch.amax(s, dim=0)  # (C,)
+    """One query against the candidate megabatch: batched dot, no loop (on
+    DTensors each rank scores its block of the candidates)."""
+    caps, rows = _interests_rows(cfg, params, batch)  # (1, K, d)
+    dp = _dp(batch["cand_ids"])
+    cand = _take(params["item_table"], batch["cand_ids"], dp)  # (C, d)
+    crow = _rows(cand, dp)
+    return local_call(lambda caps, cand: torch.amax(torch.einsum("kd,cd->kc", caps[0], cand),
+                                                    dim=0),  # (C,)
+                      (caps, cand), (rows, crow), P(crow[0]))
 
 
 def loss_and_grads(cfg: RecsysConfig, params, batch):
@@ -238,8 +259,6 @@ def make_step(cfg: RecsysConfig, shape: ShapeSpec, opt_cfg=None):
 
     @torch.no_grad()
     def serve(params, batch):
-        if any(is_dtensor(t) for t in batch.values()):
-            raise NotImplementedError("sharded serving is not ported; gather first")
         return score(cfg, params, batch)
 
     return serve

@@ -25,16 +25,23 @@ Sharding strategy (single-pod mesh ("data", "model")), the reference's:
   * batch over ("pod",)+"data" on the multi-pod mesh; "pod" is pure DP.
 On DTensors (parameters placed by ``param_specs``, tokens by
 ``input_specs``) a step with ``dp_axes`` runs SPMD: each rank runs the
-blocks on its batch shard with the layer's weights gathered one layer at a
-time (ZeRO-3; a stack split over its layer dim is gathered layer by layer
-inside the block, see ``unstack_leaf``), the MoE dispatch on every token
-with the experts split over "model", and the gradients are reduced back
-onto the parameters' shards.  The "model" axis stores heads, FFN columns
-and vocab split but computes them whole: every rank of it runs the same
-rows, and the head's logits are whole per row before the vocab constraint
-slices them (tensor-parallel compute is not ported).  The same body runs
-on plain tensors, where every constraint and ``local_call`` is a no-op and
-the step is the one-device step.
+blocks on its batch shard with the layer's weights gathered over the ZeRO
+axes one layer at a time (a stack split over its layer dim is gathered
+layer by layer inside the block, see ``unstack_leaf``), and
+tensor-parallel over "model": its query heads (their KV heads, or K and V
+whole where the KV heads do not split; its block of the query positions
+where the query heads do not split either), its FFN and shared-expert
+columns, MLA's head-split projections (the latent computed or gathered
+whole), its vocab columns of the embedding and the head, with the
+cross-entropy taken over the vocab shards.  Row-split projections leave
+each rank a term of a sum, reduced onto the residual stream (a
+reduce-scatter over S with ``seq_shard``).  The MoE dispatch runs on every
+token with the experts split over "model"; the gradients are reduced back
+onto the parameters' shards.  ``grad_accum`` and ``batch_chunks`` cut the
+reference's global rows, and the decode step writes each rank's block of
+the caches in place (``make_decode_step``).  The same body runs on plain
+tensors, where every constraint and ``local_call`` is a no-op and the step
+is the one-device step; on a (1, 1) mesh it is that step bit for bit.
 """
 
 from __future__ import annotations
@@ -50,9 +57,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import LMConfig, ShapeSpec
 from repro_torch.distributed.sharding import (P, LayerShard, NamedSharding, ShapeDtypeStruct,
                                               constrain, full, gather_layer, is_dtensor,
-                                              leaf_tensor, local_call, mesh_shape,
+                                              is_split, leaf_tensor, local_call, mesh_shape,
+                                              model_index, model_size, model_spec,
                                               named_sharding, sanitize_spec, shift_placements,
-                                              stack_slices, to_placements, unstack_leaf)
+                                              spec_of, stack_slices, to_placements,
+                                              unstack_leaf, zeros_from_struct)
 from repro_torch.models import layers as L
 from repro_torch.optim import OptConfig, adamw_update
 from repro_torch.tree import tree_leaves, tree_map
@@ -289,7 +298,9 @@ class _Tree(nn.Module):
 
 def _constrain(x, dp_axes, ndim_tail: int, *, seq_shard: bool = False):
     """Residual-stream sharding constraint; a no-op when ``dp_axes`` is
-    empty or ``x`` is a plain tensor.
+    empty or ``x`` is a plain tensor.  A term of a sum over "model" (an
+    attention or FFN output) is reduced here: an all-reduce, or with
+    ``seq_shard`` a reduce-scatter over S.
 
     ``seq_shard`` = Megatron-style sequence parallelism: the (B, S, d)
     stream between blocks is additionally sharded over "model" on S, so the
@@ -301,35 +312,102 @@ def _constrain(x, dp_axes, ndim_tail: int, *, seq_shard: bool = False):
     return constrain(x, P(dp_axes, *([None] * ndim_tail)))
 
 
-def _attn_half(cfg: LMConfig, p: dict, x, positions, kv_chunk):
-    """(x + attention(rmsnorm(x)), the FFN's input rmsnorm of that)."""
-    h = L.rmsnorm(x, p["ln1"])
-    attn = L.mla_attention if cfg.mla else L.gqa_attention
-    a, _ = attn(cfg, p["attn"], h, positions, kv_chunk=kv_chunk)
-    x = x + a
-    return x, L.rmsnorm(x, p["ln2"])
+# the dims of each weight that tensor-parallel compute keeps split over
+# "model" (heads, head_dim of the output projection, FFN columns or rows);
+# any other split of a weight is gathered where it is used
+_TP_DIMS = {"wq": (1,), "wk": (1,), "wv": (1,), "bq": (0,), "bk": (0,), "bv": (0,),
+            "wq_a": (1,), "wq_b": (1,), "wk_b": (1,), "wv_b": (1,), "wo": (0, 1),
+            "w1": (1,), "w3": (1,), "w2": (0,)}
+
+
+def _tp_specs(p: dict, whole=()) -> dict:
+    """``local_call`` in-specs of a layer's weights: each keeps its split
+    over "model" on its ``_TP_DIMS`` (the keys in ``whole`` none)."""
+    return {k: P() if k in whole else model_spec(v, _TP_DIMS.get(k, ()))
+            for k, v in p.items()}
+
+
+def _tp(spec) -> tuple:
+    """The ``partial`` axes of a piece whose last projection is laid out by
+    ``spec``: "model" when it is split there (each rank's term of a sum)."""
+    return ("model",) if is_split(spec) else ()
+
+
+def _positions(h):
+    B, S = h.shape[:2]
+    return torch.arange(S, device=h.device).expand(B, S)
+
+
+def _attention(cfg: LMConfig, p: dict, x, kv_chunk, act):
+    """The attention of a block, tensor-parallel over "model": each rank's
+    heads (its term of the sum over "model" where ``wo`` is split).  Where
+    the query heads do not split over "model" (their head_dim does), each
+    rank takes its block of the query positions instead, against every key,
+    and its rows of the output.  MLA's ``x @ wq_a`` runs on the column
+    shards and is gathered, as ``q_norm`` reads the whole latent."""
+    attn = p["attn"]
+    specs = _tp_specs(attn)
+    tp = _tp(specs["wo"])
+    if not cfg.mla:
+        j, m = model_index(x), model_size(x)
+        S = x.shape[1]
+        if m > 1 and not is_split(specs["wq"]) and S % m == 0:
+            rows = slice(j * (S // m), (j + 1) * (S // m))
+
+            def by_rows(x, ln, w):
+                h = L.rmsnorm(x, ln)
+                return L.gqa_attention(cfg, w, h, _positions(h), kv_chunk=kv_chunk,
+                                       q_rows=rows)[0]
+
+            return local_call(by_rows, (x, p["ln1"], attn), (act, P(), _tp_specs(attn, attn)),
+                              P(act[0], "model", None))
+
+        def local(x, ln, w):
+            h = L.rmsnorm(x, ln)
+            return L.gqa_attention(cfg, w, h, _positions(h), kv_chunk=kv_chunk, shard=j)[0]
+
+        return local_call(local, (x, p["ln1"], attn), (act, P(), specs), act, partial=tp)
+
+    cq = _mla_cq(x, p, specs["wq_a"], act)
+    rest = {k: v for k, v in attn.items() if k != "wq_a"}
+
+    def local(x, ln, cq, w):
+        h = L.rmsnorm(x, ln)
+        return L.mla_attention(cfg, w, h, _positions(h), kv_chunk=kv_chunk, cq=cq)[0]
+
+    return local_call(local, (x, p["ln1"], cq, rest),
+                      (act, P(), act, {k: specs[k] for k in rest}), act, partial=tp)
+
+
+def _mla_cq(x, p: dict, spec, act):
+    """``rmsnorm(x) @ wq_a`` on the column shards of "model", gathered."""
+    cq = local_call(lambda x, ln, w: torch.einsum("bsd,dr->bsr", L.rmsnorm(x, ln), w),
+                    (x, p["ln1"], p["attn"]["wq_a"]), (act, P(), spec),
+                    P(act[0], *([None] * (len(act) - 2)), "model" if is_split(spec) else None))
+    return constrain(cq, act)
+
+
+def _ffn(cfg: LMConfig, p: dict, x, dp_axes, act):
+    """The FFN of a block on rmsnorm(x): a dense SwiGLU column-split (w1,
+    w3) and row-split (w2) over "model", each rank's term of the sum; an MoE
+    layer through ``moe_ffn`` (experts over "model")."""
+    if "router" in p["ffn"]:
+        y = local_call(L.rmsnorm, (x, p["ln2"]), (act, P()), act)
+        return L.moe_ffn(cfg, p["ffn"], y, dp_axes)
+    specs = _tp_specs(p["ffn"])
+    return local_call(lambda x, ln, w: L.swiglu(w, L.rmsnorm(x, ln)), (x, p["ln2"], p["ffn"]),
+                      (act, P(), specs), act, partial=_tp(specs["w2"]))
 
 
 def _block(cfg: LMConfig, p: dict, x, kv_chunk, dp_axes=(), seq_shard=False):
-    """One block.  Each rank runs its own rows with the layer's weights
-    gathered (attention and a dense FFN read one sequence at a time); a
-    layer of a split stack is gathered here, inside the recomputed block."""
+    """One block.  Each rank runs its own rows and, within them, its shard
+    of the heads and FFN columns; the terms are reduced onto the residual
+    stream.  A layer of a split stack is gathered here, inside the
+    recomputed block."""
     p = tree_map(gather_layer, p)
-    moe = "router" in p["ffn"]
     act = P(dp_axes, None, None)
-    half = {"attn": p["attn"], "ln1": p["ln1"], "ln2": p["ln2"]}
-
-    def local(x, half, ffn=None):
-        B, S = x.shape[:2]
-        pos = torch.arange(S, device=x.device).expand(B, S)
-        x, y = _attn_half(cfg, half, x, pos, kv_chunk)
-        return (x, y) if ffn is None else x + L.swiglu(ffn, y)
-
-    if moe:
-        x, y = local_call(local, (x, half), (act, P()), (act, act))
-        x = x + L.moe_ffn(cfg, p["ffn"], y, dp_axes)
-    else:
-        x = local_call(local, (x, half, p["ffn"]), (act, P(), P()), act)
+    x = x + _constrain(_attention(cfg, p, x, kv_chunk, act), dp_axes, 2, seq_shard=seq_shard)
+    x = x + _constrain(_ffn(cfg, p, x, dp_axes, act), dp_axes, 2, seq_shard=seq_shard)
     return _constrain(x, dp_axes, 2, seq_shard=seq_shard)
 
 
@@ -354,6 +432,51 @@ def _head(cfg, params, x):
     return torch.einsum("bsd,dv->bsv", x, head)
 
 
+def _embed(cfg: LMConfig, embed, tokens, dp_axes):
+    """Token ids (B, S) or (B,) → (B, S or 1, d) on the batch rows.  The
+    table's rows are split over "model": each rank reads the ids it holds
+    (zeros elsewhere) and the terms are summed, exactly."""
+    spec = model_spec(embed, (0,))
+    V = embed.shape[0]
+    j = model_index(embed)
+
+    def look(t, e):
+        t = t.reshape(t.shape[0], -1)
+        if e.shape[0] == V:
+            return F.embedding(t, e).to(cfg.torch_dtype)
+        loc = t - j * e.shape[0]
+        hit = (loc >= 0) & (loc < e.shape[0])
+        x = F.embedding(torch.where(hit, loc, 0), e)
+        return (x * hit[..., None].to(x.dtype)).to(cfg.torch_dtype)
+
+    act = P(dp_axes, None, None)
+    x = local_call(look, (tokens, embed), (P(dp_axes, *([None] * (tokens.ndim - 1))), spec),
+                   act, partial=_tp(spec))
+    return _constrain(x, dp_axes, 2)
+
+
+def _logits(cfg: LMConfig, params, x, dp_axes, last_only: bool):
+    """The head on the final norm, vocab-parallel: each rank of "model"
+    computes the logits of its vocab columns, laid out P(dp, None,
+    "model")."""
+    act = P(dp_axes, None, None)
+    head = {k: params[k] for k in ("final_norm", "lm_head") if k in params}
+    if "lm_head" not in head:
+        head["embed"] = params["embed"]
+    specs = {k: model_spec(v, (1,) if k == "lm_head" else (0,)) for k, v in head.items()}
+    vocab = specs.get("lm_head", specs.get("embed"))
+    split = is_split(vocab)
+
+    def finish(x, head):
+        return _head(cfg, head, x[:, -1:] if last_only else x)
+
+    logits = local_call(finish, (x, head), (act, specs),
+                        P(dp_axes, None, "model") if split else act)
+    if dp_axes and not split:
+        logits = constrain(logits, P(dp_axes, None, "model"))
+    return logits
+
+
 def forward(cfg: LMConfig, params: Any, tokens: torch.Tensor, *, dp_axes=("data",),
             kv_chunk: int = 1024, seq_shard: bool = False, last_only: bool = False,
             layers: Optional[Dict[str, list]] = None) -> torch.Tensor:
@@ -362,32 +485,15 @@ def forward(cfg: LMConfig, params: Any, tokens: torch.Tensor, *, dp_axes=("data"
     ``layers``: the stacks already unbound ({stack: [layer tree, ...]}),
     as the train step passes its slices (``params`` then needs only the
     embedding, final norm and head); by default unbound here.  Tokens as a
-    DTensor (placed by ``input_specs``) run SPMD over ``dp_axes``."""
+    DTensor (placed by ``input_specs``) run SPMD over ``dp_axes`` and
+    tensor-parallel over "model"; the logits come out vocab-split."""
     if layers is None:
         layers = {k: unstack(params[k]) for k in stacks(params)}
-    act = P(dp_axes, None, None)
-    head = {k: params[k] for k in ("final_norm", "lm_head") if k in params}
-    if "lm_head" not in head:
-        head["embed"] = params["embed"]
-    # on DTensors the table's rows are split over "model" (and a column
-    # block over the ZeRO axes) and a lookup reads any row: gathered
-    x = local_call(lambda t, e: F.embedding(t, e).to(cfg.torch_dtype),
-                   (tokens, params["embed"]), (P(dp_axes, None), P()), act)
+    x = _embed(cfg, params["embed"], tokens, dp_axes)
     x = _constrain(x, dp_axes, 2, seq_shard=seq_shard)
     for name in stacks(layers):
         x = _run_blocks(cfg, layers[name], x, kv_chunk, dp_axes, seq_shard)
-
-    def finish(x, head):
-        return _head(cfg, head, x[:, -1:] if last_only else x)
-
-    logits = local_call(finish, (x, head), (act, P()), act)
-    if dp_axes:
-        # the reference's layout (vocab over "model"); each rank computed its
-        # rows' logits over the whole vocab, so on a mesh this slices them
-        # and the loss gathers them again (tensor-parallel compute is not
-        # ported)
-        logits = constrain(logits, P(dp_axes, None, "model"))
-    return logits
+    return _logits(cfg, params, x, dp_axes, last_only)
 
 
 def _xent(cfg: LMConfig, logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -403,6 +509,44 @@ def _xent(cfg: LMConfig, logits: torch.Tensor, tokens: torch.Tensor) -> torch.Te
     return lse - picked
 
 
+def _xent_vocab_split(cfg: LMConfig, logits, tokens, dp_axes):
+    """Each rank's term of the mean cross-entropy on logits split over
+    "model" by vocab columns: the row max (a max over "model"), the sum of
+    exponentials and the label's logit (from the rank that holds its
+    column; sums over "model"), the pad columns masked where they lie."""
+    j = model_index(logits)
+    rows, lg = P(dp_axes, None), P(dp_axes, None, "model")
+    B = tokens.shape[0]
+
+    def masked(lg):
+        lg = lg[:, :-1].float()
+        vl = lg.shape[-1]
+        if cfg.vocab_padded != cfg.vocab:
+            col = j * vl + torch.arange(vl, device=lg.device)
+            lg = torch.where(col < cfg.vocab, lg, float("-inf"))
+        return lg
+
+    # the shift of the logsumexp: any constant gives its value, so no gradient
+    mx = constrain(local_call(lambda t: masked(t.detach()).amax(-1), (logits,), (lg,), rows,
+                              partial=("model",), partial_op="max"), rows)
+
+    def terms(lg, tok, mx):
+        lg = masked(lg)
+        vl = lg.shape[-1]
+        sumexp = torch.exp(lg - mx[..., None]).sum(-1)
+        loc = tok[:, 1:].long() - j * vl
+        hit = (loc >= 0) & (loc < vl)
+        picked = torch.gather(lg, -1, torch.where(hit, loc, 0)[..., None])[..., 0]
+        return sumexp, torch.where(hit, picked, 0.0)
+
+    sumexp, picked = local_call(terms, (logits, tokens, mx), (lg, rows, rows), (rows, rows),
+                                partial=("model",))
+    sumexp, picked = constrain(sumexp, rows), constrain(picked, rows)
+    return local_call(
+        lambda se, pk, mx, tok: ((torch.log(se) + mx) - pk).mean() * (tok.shape[0] / B),
+        (sumexp, picked, mx, tokens), (rows,) * 4, P(), partial=tuple(dp_axes))
+
+
 def loss_fn(cfg: LMConfig, params: Any, tokens: torch.Tensor, kv_chunk: int = 1024,
             layers: Optional[Dict[str, list]] = None, *, dp_axes=("data",),
             seq_shard: bool = False) -> torch.Tensor:
@@ -410,8 +554,9 @@ def loss_fn(cfg: LMConfig, params: Any, tokens: torch.Tensor, kv_chunk: int = 10
     logits = forward(cfg, params, tokens, dp_axes=dp_axes, kv_chunk=kv_chunk,
                      seq_shard=seq_shard, layers=layers)
     # each rank's rows: its mean, weighted by its share of the rows (the
-    # whole batch: the mean itself; the softmax reads the whole vocab row,
-    # so the vocab shards are gathered)
+    # whole batch: the mean itself); over vocab shards, the sharded softmax
+    if is_dtensor(logits) and is_split(spec_of(logits)[-1:]):
+        return full(_xent_vocab_split(cfg, logits, tokens, dp_axes))
     B = tokens.shape[0]
     part = local_call(lambda lg, tok: _xent(cfg, lg, tok).mean() * (tok.shape[0] / B),
                       (logits, tokens), (P(dp_axes, None, None), P(dp_axes, None)), P(),
@@ -486,6 +631,22 @@ def _gshard(grads, shardings, params):
     return tree_map(one, grads, shardings)
 
 
+def microbatches(tokens, n: int) -> list:
+    """The reference's microbatches: batch ``k`` is the global rows
+    ``[k·B/n, (k+1)·B/n)``.  A DTensor batch is gathered (token ids only)
+    and each microbatch placed again like it, over the same axes."""
+    B = tokens.shape[0]
+    if B % n:
+        raise ValueError(f"batch {B} does not split into {n} microbatches")
+    b = B // n
+    if not is_dtensor(tokens):
+        return list(tokens.reshape(n, b, *tokens.shape[1:]))
+    mesh = tokens.device_mesh
+    whole = tokens.full_tensor()
+    sh = NamedSharding(mesh, sanitize_spec(mesh, (b, *tokens.shape[1:]), spec_of(tokens)))
+    return [sh.distribute(whole[k * b:(k + 1) * b], device=whole.device) for k in range(n)]
+
+
 def make_train_step(cfg: LMConfig, opt_cfg: OptConfig, dp_axes=("data",),
                     kv_chunk: int = 1024, grad_accum: int = 1, seq_shard: bool = False,
                     param_shardings=None):
@@ -493,12 +654,14 @@ def make_train_step(cfg: LMConfig, opt_cfg: OptConfig, dp_axes=("data",),
     (params, opt_state, loss)``, the parameters and moments updated in place.
 
     ``grad_accum`` splits the batch into sequential microbatches (activation
-    memory ∝ 1/grad_accum); their gradients are summed in the parameters'
-    dtype and divided, as the reference's scan does.  ``param_shardings``
-    (a tree of ``NamedSharding``s or ``param_specs``' structs) constrains
-    the gradients to the parameters' shardings, as the reference constrains
-    its accumulated gradients; on DTensors the moments must be laid out
-    like the parameters (``opt_state_specs``)."""
+    memory ∝ 1/grad_accum), the reference's global rows each (see
+    ``microbatches``; an MoE layer's capacity follows the tokens of a call,
+    so the grouping decides which tokens it drops); their gradients are
+    summed in the parameters' dtype and divided, as the reference's scan
+    does.  ``param_shardings`` (a tree of ``NamedSharding``s or
+    ``param_specs``' structs) constrains the gradients to the parameters'
+    shardings, as the reference constrains its accumulated gradients; on
+    DTensors the moments must be laid out by ``opt_state_specs``."""
 
     def grads_of(params, tok):
         return loss_and_grads(cfg, params, tok, kv_chunk=kv_chunk, stacked=False,
@@ -508,15 +671,8 @@ def make_train_step(cfg: LMConfig, opt_cfg: OptConfig, dp_axes=("data",),
         if grad_accum == 1:
             loss, grads = grads_of(params, tokens)
         else:
-            B = tokens.shape[0]
-            if B % grad_accum:
-                raise ValueError(f"batch {B} does not split into {grad_accum} microbatches")
-            if is_dtensor(tokens):
-                raise NotImplementedError("grad_accum on DTensor tokens: split the batch "
-                                          "before placing it")
-            micro = tokens.reshape(grad_accum, B // grad_accum, tokens.shape[1])
             loss, grads = None, None
-            for mtok in micro:
+            for mtok in microbatches(tokens, grad_accum):
                 l, g = grads_of(params, mtok)
                 g = _gshard(g, param_shardings, params)
                 if grads is None:
@@ -578,67 +734,312 @@ def init_caches(cfg: LMConfig, batch: int, smax: int, *, device="cuda") -> Dict[
     return out
 
 
-def make_decode_step(cfg: LMConfig):
+def caches_from_specs(specs, *, device=None) -> Dict[str, Any]:
+    """Zero caches as DTensors laid out by ``_cache_specs`` (each rank
+    allocates its own blocks only)."""
+    def zeros(s):
+        if isinstance(s, tuple):  # a stack's keys and values (and scales)
+            return tuple(zeros(t) for t in s)
+        return zeros_from_struct(s, device=device)
+
+    return tree_map(zeros, specs)
+
+
+def make_decode_step(cfg: LMConfig, dp_axes=("data",)):
     """One-token decode against a (B, Smax) cache at position ``cache_len``:
     ``decode_step(params, caches, tokens, cache_len) -> (logits (B, V),
-    caches)``, the caches written in place.  The step takes plain tensors
-    only: the sharded decode is not ported (``_cache_specs`` gives the
-    sharded caches' layout)."""
+    caches)``, the caches written in place.  ``cache_len`` is an int or a
+    0-d tensor, read on the device.
+
+    On DTensors (parameters by ``param_specs``, tokens, caches and
+    ``cache_len`` by ``input_specs``) each rank decodes its batch rows and,
+    within them, its shard of the heads and FFN columns, against its block
+    of the caches (see ``_decode_attention``); each new entry is written
+    in place by the ranks that hold its position.  The logits come out
+    P(dp, "model")."""
 
     @torch.no_grad()
     def decode_step(params, caches, tokens, cache_len):
-        if is_dtensor(tokens) or any(is_dtensor(t) for t in tree_leaves(params)):
-            raise ValueError("the decode step writes its caches in place and takes plain "
-                             "tensors; gather DTensor parameters and tokens first")
-        B = tokens.shape[0]
-        cache_len = int(cache_len)
-        positions = torch.full((B, 1), cache_len, dtype=torch.long, device=tokens.device)
-        x = F.embedding(tokens[:, None], params["embed"]).to(cfg.torch_dtype)
-        attn = L.mla_attention if cfg.mla else L.gqa_attention
+        sharded = is_dtensor(tokens)
+        if sharded != any(is_dtensor(t) for t in tree_leaves(params)):
+            raise ValueError("tokens and parameters must both be DTensors or both plain")
+        if sharded and not dp_axes:
+            raise ValueError("DTensor inputs need dp_axes (the batch's mesh axes)")
+        dev = tokens.to_local().device if sharded else tokens.device
+        clen = cache_len.to_local() if is_dtensor(cache_len) else cache_len
+        clen = torch.as_tensor(clen, device=dev).reshape(()).long()
+        act = P(dp_axes, None, None)
+        x = _embed(cfg, params["embed"], tokens, dp_axes)
         for name in stacks(params):
             cache = caches[name]
-            per_layer = (cache.unbind(0) if cfg.mla
-                         else list(zip(*(c.unbind(0) for c in cache))))
+            per_layer = (unstack_leaf(cache) if cfg.mla
+                         else list(zip(*(unstack_leaf(c) for c in cache))))
             for lp, lc in zip(unstack(params[name]), per_layer):
-                h = L.rmsnorm(x, lp["ln1"])
-                a, _ = attn(cfg, lp["attn"], h, positions, kv_cache=lc, cache_len=cache_len)
-                x2 = x + a
-                y = L.rmsnorm(x2, lp["ln2"])
-                ffn = (L.moe_ffn(cfg, lp["ffn"], y) if "router" in lp["ffn"]
-                       else L.swiglu(lp["ffn"], y))
-                x = x2 + ffn
-        logits = _head(cfg, params, x)
-        return logits[:, 0], caches
+                lp = tree_map(gather_layer, lp)
+                x = x + _constrain(_decode_attention(cfg, lp, x, lc, clen, act), dp_axes, 2)
+                x = x + _constrain(_ffn(cfg, lp, x, dp_axes, act), dp_axes, 2)
+        lg = _logits(cfg, params, x, dp_axes, last_only=False)
+        if not is_dtensor(lg):
+            return lg[:, 0], caches
+        sp = sanitize_spec(lg.device_mesh, lg.shape, (dp_axes, None, "model"))
+        return local_call(lambda t: t[:, 0], (lg,), (sp,), P(sp[0], sp[2])), caches
 
     return decode_step
+
+
+def _decode_attention(cfg: LMConfig, p: dict, x, cache, clen, act):
+    """A decode step's attention on a rank's block of the caches, the term
+    of the sum over "model" where the output projection is split.
+
+    * KV heads split over "model": the local query and KV heads, the
+      one-device attention on them.
+    * A whole cache (its bf16 scales, if int8, may be split over the
+      sequence): queries and keys whole, the scales gathered.
+    * head_dim split over "model" (GQA): each rank's partial scores over its
+      slice of head_dim, summed over "model", then each rank's slice of the
+      heads' outputs, gathered for the output projection.
+    * MLA: a whole latent as the first case on the local heads; a latent
+      split over "model" as the third, over its columns.
+    """
+    leaves = (cache,) if cfg.mla else cache
+    cspec = [spec_of(c) if is_dtensor(c) else P() for c in leaves]
+    if cfg.mla:
+        if is_split(cspec[0][2:]):
+            return _decode_mla_split(cfg, p, x, cache, cspec[0], clen, act)
+        return _decode_local(cfg, p, x, cache, cspec, clen, act)
+    if is_split(cspec[0][2:3]):  # KV heads
+        return _decode_local(cfg, p, x, cache, cspec, clen, act)
+    scales = cfg.kv_quant_int8 and is_split(cspec[1][1:2])
+    if is_split(cspec[0][3:]):
+        return _decode_gqa_hd_split(cfg, p, x, cache, cspec, clen, act, scales)
+    return _decode_local(cfg, p, x, cache, cspec, clen, act, whole_q=True, scales=scales)
+
+
+def _gathered_scales(cache, cspec, act):
+    """The bf16 scales of an int8 cache split over its sequence, gathered
+    whole over "model" (a copy; its writes go to the blocks separately)."""
+    kq, ks, vq, vs = cache
+    whole = P(act[0], None, None, None)
+    return constrain(ks, whole), constrain(vs, whole)
+
+
+def _write_scales(local, gathered, clen, shard):
+    """The step's new scale, taken from the gathered copy, written into the
+    block of the sequence this rank holds (if it holds that position)."""
+    n, total = local.shape[1], gathered.shape[1]
+    pos = torch.clamp(clen, 0, total - 1).reshape(1)
+    L._write(local, gathered.index_select(1, pos), clen, first=shard * n, total=total)
+
+
+def _decode_local(cfg, p, x, cache, cspec, clen, act, *, whole_q=False, scales=False):
+    """The one-device attention on each rank's heads and cache block (see
+    ``_decode_attention``); ``whole_q`` computes every query head (a cache
+    whole over "model"), ``scales`` gathers scales split over the sequence."""
+    attn = p["attn"]
+    whole = ("wq", "bq") if whole_q else ()
+    specs = _tp_specs(attn, whole)
+    tp = _tp(specs["wo"])
+    if cfg.mla:
+        cq = _mla_cq(x, p, specs["wq_a"], act)
+        rest = {k: v for k, v in attn.items() if k != "wq_a"}
+
+        def local(x, ln, cq, w, c, clen):
+            h = L.rmsnorm(x, ln)
+            return L.mla_attention(cfg, w, h, clen.expand(h.shape[0], 1), kv_cache=c,
+                                   cache_len=clen, cq=cq)[0]
+
+        return local_call(local, (x, p["ln1"], cq, rest, cache, clen),
+                          (act, P(), act, {k: specs[k] for k in rest}, cspec[0], None),
+                          act, partial=tp)
+    j = model_index(x)
+    extra = _gathered_scales(cache, cspec, act) if scales else ()
+
+    def local(x, ln, w, c, clen, *sc):
+        h = L.rmsnorm(x, ln)
+        if sc:  # attend with the gathered scales, then write the blocks
+            kq, ks, vq, vs = c
+            y = L.gqa_attention(cfg, w, h, clen.expand(h.shape[0], 1),
+                                kv_cache=(kq, sc[0], vq, sc[1]), cache_len=clen, shard=j)[0]
+            _write_scales(ks, sc[0], clen, j)
+            _write_scales(vs, sc[1], clen, j)
+            return y
+        return L.gqa_attention(cfg, w, h, clen.expand(h.shape[0], 1), kv_cache=c,
+                               cache_len=clen, shard=j)[0]
+
+    whole4 = P(act[0], None, None, None)
+    return local_call(local, (x, p["ln1"], attn, tuple(cache), clen, *extra),
+                      (act, P(), specs, tuple(cspec), None, *([whole4] * len(extra))),
+                      act, partial=tp)
+
+
+def _decode_gqa_hd_split(cfg, p, x, cache, cspec, clen, act, scales):
+    """GQA decode on a cache split over head_dim: every rank computes the
+    step's queries, keys and values whole, writes its slice of head_dim,
+    and scores every head on its slice; the scores are summed over "model",
+    each rank attends over its slice of the values, and the heads' outputs
+    are gathered for the output projection."""
+    attn = p["attn"]
+    specs = _tp_specs(attn, ("wq", "bq", "wk", "bk", "wv", "bv"))
+    j = model_index(x)
+    qkv = {k: v for k, v in attn.items() if k != "wo"}
+    extra = _gathered_scales(cache, cspec, act) if scales else ()
+    D = cfg.hd
+    s5 = P(act[0], None, None, None, None)
+    whole4 = P(act[0], None, None, None)
+
+    def deq(c, s, dt):
+        return c.to(dt) if s is None else L._dequant_int8(c, s, dt)
+
+    def scores(x, ln, w, c, clen, *sc):
+        h = L.rmsnorm(x, ln)
+        pos = clen.expand(h.shape[0], 1)
+        q = torch.einsum("bsd,dhk->bshk", h, w["wq"])
+        k = torch.einsum("bsd,dhk->bshk", h, w["wk"])
+        v = torch.einsum("bsd,dhk->bshk", h, w["wv"])
+        if cfg.qkv_bias:
+            q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
+        q = L.rope(q, pos, cfg.rope_theta)
+        k = L.rope(k, pos, cfg.rope_theta)
+        dl = c[0].shape[-1]
+        cols = slice(j * dl, (j + 1) * dl)
+        if sc:
+            kq, ks, vq, vs = c
+            (knq, kns), (vnq, vns) = L._quant_int8(k), L._quant_int8(v)
+            for blk, new in ((kq, knq[..., cols]), (vq, vnq[..., cols]), (sc[0], kns),
+                             (sc[1], vns)):
+                L._write(blk, new, clen)
+            _write_scales(ks, sc[0], clen, j)
+            _write_scales(vs, sc[1], clen, j)
+            kc = deq(kq, sc[0], q.dtype)
+        elif cfg.kv_quant_int8:
+            kq, ks, vq, vs = c
+            (knq, kns), (vnq, vns) = L._quant_int8(k), L._quant_int8(v)
+            for blk, new in ((kq, knq[..., cols]), (ks, kns), (vq, vnq[..., cols]), (vs, vns)):
+                L._write(blk, new, clen)
+            kc = deq(kq, ks, q.dtype)
+        else:
+            L._write(c[0], k[..., cols], clen)
+            L._write(c[1], v[..., cols], clen)
+            kc = c[0]
+        B, _, H, _ = q.shape
+        hkv = kc.shape[2]
+        qh = q[..., cols].reshape(B, 1, hkv, H // hkv, dl)
+        return torch.einsum("bqhgd,bkhd->bqhgk", qh, kc).float()
+
+    s = local_call(scores, (x, p["ln1"], qkv, tuple(cache), clen, *extra),
+                   (act, P(), {k: specs[k] for k in qkv}, tuple(cspec), None,
+                    *([whole4] * len(extra))), s5, partial=("model",))
+    s = constrain(s, s5)
+
+    def attend(s, c, clen, *sc):
+        vc = c[2] if cfg.kv_quant_int8 else c[1]
+        vs = sc[1] if sc else (c[3] if cfg.kv_quant_int8 else None)
+        vc = deq(vc, vs, cfg.torch_dtype)
+        s = s * (D ** -0.5)
+        pos = torch.arange(vc.shape[1], device=vc.device)
+        s = torch.where((pos < clen + 1)[None, None, None, None, :], s, L.NEG_INF)
+        pr = torch.softmax(s, dim=-1).to(vc.dtype)
+        out = torch.einsum("bqhgk,bkhe->bqhge", pr, vc)
+        return out.reshape(out.shape[0], 1, -1, out.shape[-1])
+
+    out = local_call(attend, (s, tuple(cache), clen, *extra),
+                     (s5, tuple(cspec), None, *([whole4] * len(extra))),
+                     P(act[0], None, None, "model"))
+    out = constrain(out, whole4)
+    wspec = model_spec(attn["wo"], _TP_DIMS["wo"])
+    return local_call(lambda o, wo: torch.einsum("bshk,hkd->bsd", L.wo_slice(o, wo, j), wo),
+                      (out, attn["wo"]), (whole4, wspec), act, partial=_tp(wspec))
+
+
+def _decode_mla_split(cfg, p, x, cache, cspec, clen, act):
+    """MLA decode on a latent cache split over "model" by columns: every
+    rank computes the step's latent whole and writes its columns; the
+    absorbed queries of its heads are gathered, each rank scores every
+    head over its columns (summed over "model"), attends over its columns
+    (gathered), and its heads run ``wv_b`` and ``wo``."""
+    attn = p["attn"]
+    specs = _tp_specs(attn)
+    j = model_index(x)
+    dn, dr, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+    cq = _mla_cq(x, p, specs["wq_a"], act)
+    qkeys = ("q_norm", "wq_b", "wk_b", "wkv_a", "kv_norm")
+    heads = "model" if is_split(specs["wq_b"]) else None
+    whole4 = P(act[0], None, None, None)
+
+    def queries(x, ln, cq, w, c, clen):
+        h = L.rmsnorm(x, ln)
+        q, latent = L.mla_queries_latent(cfg, w, h, clen.expand(h.shape[0], 1), cq)
+        cl = c.shape[-1]
+        L._write(c, latent[..., j * cl:(j + 1) * cl], clen)
+        q_abs = torch.einsum("bqhd,rhd->bqhr", q[..., :dn], w["wk_b"])
+        return torch.cat([q_abs, q[..., dn:]], dim=-1)
+
+    qcat = local_call(queries, (x, p["ln1"], cq, {k: attn[k] for k in qkeys}, cache, clen),
+                      (act, P(), act, {k: specs[k] for k in qkeys}, cspec, None),
+                      P(act[0], None, heads, None))
+    qcat = constrain(qcat, whole4)
+
+    def scores(qc, c):
+        cl = c.shape[-1]
+        return torch.einsum("bqhc,bsc->bqhs", qc[..., j * cl:(j + 1) * cl],
+                            c.to(qc.dtype)).float()
+
+    s = constrain(local_call(scores, (qcat, cache), (whole4, cspec), whole4,
+                             partial=("model",)), whole4)
+
+    def attend(s, c, clen):
+        s = s * (dn + dr) ** -0.5
+        pos = torch.arange(c.shape[1], device=c.device)
+        s = torch.where((pos < clen + 1)[None, None, None, :], s, L.NEG_INF)
+        pr = torch.softmax(s, dim=-1).to(cfg.torch_dtype)
+        return torch.einsum("bqhs,bsc->bqhc", pr, c.to(pr.dtype))
+
+    lat_out = constrain(local_call(attend, (s, cache, clen), (whole4, cspec, None),
+                                   P(act[0], None, None, "model")), whole4)
+    ov = {"wv_b": attn["wv_b"], "wo": attn["wo"]}
+
+    def project(lo, w):
+        hl = w["wv_b"].shape[1]
+        lo = lo[:, :, j * hl:(j + 1) * hl, :r] if hl != lo.shape[2] else lo[..., :r]
+        out = torch.einsum("bqhr,rhe->bqhe", lo, w["wv_b"])
+        return torch.einsum("bshk,hkd->bsd", out, w["wo"])
+
+    return local_call(project, (lat_out, ov), (whole4, {k: specs[k] for k in ov}), act,
+                      partial=_tp(specs["wo"]))
 
 
 def make_prefill_step(cfg: LMConfig, dp_axes=("data",), kv_chunk: int = 1024,
                       seq_shard: bool = False, batch_chunks: int = 1):
     """Full-sequence prefill → last-token logits (B, V) (the cache write is
     elided, as in the reference).  ``batch_chunks`` runs the batch in
-    sequential chunks, bounding the working set; DTensor tokens run SPMD
-    over ``dp_axes`` in one chunk."""
+    sequential chunks of the reference's global rows (``microbatches``),
+    bounding the working set; DTensor tokens run SPMD over ``dp_axes`` and
+    tensor-parallel over "model", the logits P(dp, "model")."""
+
+    def one(params, tokens):
+        lg = forward(cfg, params, tokens, dp_axes=dp_axes, kv_chunk=kv_chunk,
+                     seq_shard=seq_shard, last_only=True)
+        if not is_dtensor(lg):
+            return lg[:, 0], None
+        sp = sanitize_spec(lg.device_mesh, lg.shape, (dp_axes, None, "model"))
+        return local_call(lambda t: t[:, 0], (lg,), (sp,), P(sp[0], sp[2])), sp[2]
 
     @torch.no_grad()
     def prefill_step(params, tokens):
-        B = tokens.shape[0]
-        if B % batch_chunks:
-            raise ValueError(f"batch {B} does not split into {batch_chunks} chunks")
-        if is_dtensor(tokens):
-            if batch_chunks != 1:
-                raise NotImplementedError("batch_chunks on DTensor tokens")
-            lg = forward(cfg, params, tokens, dp_axes=dp_axes, kv_chunk=kv_chunk,
-                         seq_shard=seq_shard, last_only=True)
-            sp = sanitize_spec(lg.device_mesh, lg.shape, (dp_axes, None, "model"))
-            return local_call(lambda t: t[:, 0], (lg,), (sp,), P(sp[0], sp[2]))
-        outs = [forward(cfg, params, t, dp_axes=dp_axes, kv_chunk=kv_chunk,
-                        seq_shard=seq_shard, last_only=True)[:, 0]
-                for t in tokens.chunk(batch_chunks)]
-        return torch.cat(outs, 0)
+        outs = [one(params, t) for t in microbatches(tokens, batch_chunks)]
+        if len(outs) == 1:
+            return outs[0][0]
+        if not is_dtensor(outs[0][0]):
+            return torch.cat([o for o, _ in outs], 0)
+        # each chunk's rows gathered over the dp axes, joined and placed
+        # again over them (no rank holds more than the whole (B, V / model))
+        vspec = outs[0][1]
+        rows = [constrain(o, P(None, vspec)) for o, _ in outs]
+        cat = local_call(lambda *xs: torch.cat(xs, 0), rows, (P(None, vspec),) * len(rows),
+                         P(None, vspec))
+        return constrain(cat, P(dp_axes, vspec))
 
     return prefill_step
-
 
 
 def _cache_specs(cfg: LMConfig, mesh, batch: int, smax: int, dp_axes):

@@ -11,19 +11,27 @@ The state is a tree mirroring the parameters, updated IN PLACE: a
 stacked parameter whose gradient comes as the list of its layer slices
 (what the train step produces) is updated slice by slice, so a 4B-param
 model never holds a whole-stack f32 temporary.
+
+On a mesh the 8-bit payloads are flat and split over every mesh axis
+(``opt_state_specs``): each rank's parameter and gradient blocks are
+exchanged into the flat ranges of the payload blocks it holds (one
+all-to-all over the mesh), updated there, and exchanged back (see
+:class:`_FlatLayout`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
-from typing import Any, Tuple
+from typing import Any, List, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import (P, NamedSharding, ShapeDtypeStruct, axis_names,
-                                              contiguous_stride, is_dtensor, mesh_device,
-                                              mesh_shape, shift_placements)
+from repro_torch.distributed.sharding import (P, NamedSharding, ShapeDtypeStruct, axes_index,
+                                              axis_names, contiguous_stride, is_dtensor,
+                                              mesh_shape, shift_placements, stack_slices,
+                                              zeros_from_struct)
 from repro_torch.tree import tree_leaves, tree_map
 
 QBLOCK = 128
@@ -58,10 +66,22 @@ def _q8_zeros(shape, device=None) -> Q8State:
 
 
 def _q8_read(st: Q8State, *, sqrt_scale: bool = False) -> torch.Tensor:
-    q = st.q.float().reshape(-1, QBLOCK)
-    x = (q * st.scale[:, None] / 127.0).reshape(-1)
+    x = _dequant(st.q, st.scale)
     x = x[:math.prod(st.shape)].reshape(st.shape)
     return x.square() if sqrt_scale else x
+
+
+def _dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Flat f32 values of whole blocks: payload times block scale / 127."""
+    return (q.float().reshape(-1, QBLOCK) * scale[:, None] / 127.0).reshape(-1)
+
+
+def _quant(flat: torch.Tensor):
+    """Flat f32 values of whole blocks → (int8 payload, f32 block absmax)."""
+    blk = flat.reshape(-1, QBLOCK)
+    scale = torch.clamp(blk.abs().amax(1), min=1e-12)
+    q = torch.clamp(torch.round(blk / scale[:, None] * 127.0), -127, 127).to(torch.int8)
+    return q.reshape(-1), scale
 
 
 def _q8_write(st: Q8State, x: torch.Tensor, *, sqrt_scale: bool = False) -> Q8State:
@@ -75,10 +95,8 @@ def _q8_write(st: Q8State, x: torch.Tensor, *, sqrt_scale: bool = False) -> Q8St
     if sqrt_scale:
         flat = torch.sqrt(torch.clamp(flat, min=0.0))
     flat = torch.nn.functional.pad(flat, (0, st.q.shape[0] - flat.shape[0]))
-    blk = flat.reshape(-1, QBLOCK)
-    scale = torch.clamp(blk.abs().amax(1), min=1e-12)
-    q = torch.clamp(torch.round(blk / scale[:, None] * 127.0), -127, 127).to(torch.int8)
-    return Q8State(q=q.reshape(-1), scale=scale, shape=st.shape)
+    q, scale = _quant(flat)
+    return Q8State(q=q, scale=scale, shape=st.shape)
 
 
 def adamw_init(params: Any, cfg: OptConfig) -> Any:
@@ -129,10 +147,10 @@ def adamw_update(params: Any, grads: Any, state: Any, cfg: OptConfig):
     b2c = 1.0 - torch.pow(cfg.b2, c.float())
 
     def upd(p, g, mv):
+        if is_dtensor(p) and cfg.quantized:
+            _q8_update_sharded(p, g, mv, b1c, b2c, cfg)
+            return
         if is_dtensor(p):
-            if cfg.quantized:
-                raise NotImplementedError("the 8-bit update of sharded moments: "
-                                          "opt_state_specs gives its layout only")
             pl = tuple(p.placements)
             if isinstance(g, list):
                 g = [_local(s, shift_placements(pl, -1), "a layer's gradient") for s in g]
@@ -158,6 +176,152 @@ def adamw_update(params: Any, grads: Any, state: Any, cfg: OptConfig):
         tree_map(upd, params, grads, state["mu"])
         state["count"] = count
     return params, state
+
+
+def _q8_update_sharded(p, g, mv, b1c, b2c, cfg: OptConfig) -> None:
+    """The 8-bit update of a DTensor parameter against payloads laid out
+    by ``opt_state_specs``, in place: on payloads split over the mesh each
+    rank updates the flat blocks it holds (its parameter and gradient
+    values brought there and back by :class:`_FlatLayout`); on replicated
+    payloads every rank updates the whole parameter, gathered, and keeps
+    its block."""
+    if isinstance(g, list):
+        g = stack_slices(g)
+    if tuple(g.placements) != tuple(p.placements):
+        raise ValueError(f"a gradient placed {tuple(g.placements)}, its parameter "
+                         f"{tuple(p.placements)}")
+    m, v = mv["m"], mv["v"]
+    if not any(pl.is_shard() for pl in m.q.placements):
+        whole = {k: Q8State(st.q.to_local(), st.scale.to_local(), st.shape)
+                 for k, st in (("m", m), ("v", v))}
+        pw, gw = p.full_tensor(), g.full_tensor()
+        mw = _q8_read(whole["m"])
+        vw = _q8_read(whole["v"], sqrt_scale=True)
+        _adam(pw, gw, mw, vw, b1c, b2c, cfg)
+        for st, new in ((m, _q8_write(whole["m"], mw)),
+                        (v, _q8_write(whole["v"], vw, sqrt_scale=True))):
+            st.q.to_local().copy_(new.q)
+            st.scale.to_local().copy_(new.scale)
+        lay = _FlatLayout(p, m.q.shape[0])
+        lo, size = lay.boxes[lay.me]
+        p.to_local().copy_(pw[tuple(slice(a, a + n) for a, n in zip(lo, size))])
+        return
+    lay = _FlatLayout(p, m.q.shape[0])
+    pf = lay.to_flat(p.to_local())
+    gf = lay.to_flat(g.to_local())
+    mf = _dequant(m.q.to_local(), m.scale.to_local())
+    vf = _dequant(v.q.to_local(), v.scale.to_local()).square()
+    _adam(pf, gf, mf, vf, b1c, b2c, cfg)
+    for st, x in ((m, mf), (v, torch.sqrt(torch.clamp(vf, min=0.0)))):
+        q, scale = _quant(x)
+        st.q.to_local().copy_(q)
+        st.scale.to_local().copy_(scale)
+    lay.from_flat(pf, p.to_local())
+
+
+def _box(shape, pl, coord, sizes) -> Tuple[List[int], List[int]]:
+    """(first index, length) along each dim of the block a mesh position
+    holds (dims split evenly, nested in mesh-dim order)."""
+    lo, size = [0] * len(shape), list(shape)
+    for j, p in enumerate(pl):
+        if p.is_shard():
+            size[p.dim] //= sizes[j]
+            lo[p.dim] += coord[j] * size[p.dim]
+    return lo, size
+
+
+def _count_below(shape, lo, size, x: int) -> int:
+    """How many elements of the block (``lo``, ``size``) of a ``shape``
+    array have a row-major flat index below ``x``."""
+    if x <= 0 or not shape:
+        return 0 if x <= 0 else 1
+    stride = math.prod(shape[1:])
+    row = x // stride
+    out = min(max(row - lo[0], 0), size[0]) * math.prod(size[1:])
+    if lo[0] <= row < lo[0] + size[0] and len(shape) > 1:
+        out += _count_below(shape[1:], lo[1:], size[1:], x - row * stride)
+    return out
+
+
+def _flat_index(shape, lo, size, k0: int, k1: int, device) -> torch.Tensor:
+    """Flat indices in the ``shape`` array of the block's elements ``k0``
+    to ``k1 - 1`` in its own row-major order."""
+    k = torch.arange(k0, k1, device=device, dtype=torch.long)
+    f = torch.zeros_like(k)
+    for d, stride in reversed(list(enumerate(contiguous_stride(shape)))):
+        f += (k % size[d] + lo[d]) * stride
+        k = k // size[d]
+    return f
+
+
+class _FlatLayout:
+    """A DTensor parameter's blocks against its 8-bit payload's flat layout:
+    the payload (``total`` values, the flat parameter padded to whole
+    blocks) split evenly over every mesh position in row-major order, so
+    position ``r`` holds flat indices ``[r·C, (r+1)·C)``.
+
+    A block's elements in row-major order have rising flat indices, so each
+    block meets each range in one run.  ``to_flat`` sends each block (from
+    the first of the positions that hold a copy) to the ranges it meets;
+    ``from_flat`` sends each range back to every position whose block it
+    meets.  Each is one ``all_to_all_single`` over the mesh, its sizes
+    counted on the host from the shapes alone."""
+
+    def __init__(self, t, total: int):
+        mesh = t.device_mesh
+        self.shape = tuple(t.shape)
+        self.n = math.prod(self.shape)
+        sizes = tuple(mesh.mesh.shape)
+        pl = tuple(t.placements)
+        coords = list(itertools.product(*(range(s) for s in sizes)))
+        self.boxes = [_box(self.shape, pl, c, sizes) for c in coords]
+        self.owner = [all(c[j] == 0 for j, p in enumerate(pl) if not p.is_shard())
+                      for c in coords]
+        self.me = axes_index(mesh, mesh.mesh_dim_names)
+        self.chunk = total // len(coords)
+        self.mesh = mesh
+
+    def _meet(self, s: int, r: int) -> Tuple[int, int]:
+        """(first, end) ordinals of block ``s``'s elements in range ``r``."""
+        lo, size = self.boxes[s]
+        c = self.chunk
+        return (_count_below(self.shape, lo, size, r * c),
+                _count_below(self.shape, lo, size, (r + 1) * c))
+
+    def _all_to_all(self, send: torch.Tensor, send_counts, recv_counts) -> torch.Tensor:
+        import torch.distributed._functional_collectives as fc
+
+        group = self.mesh._flatten().get_group() if self.mesh.ndim > 1 else self.mesh.get_group()
+        out = fc.all_to_all_single(send.contiguous(), list(recv_counts), list(send_counts),
+                                   group)
+        return fc.wait_tensor(out)
+
+    def to_flat(self, local: torch.Tensor) -> torch.Tensor:
+        """This position's flat range of the parameter (zeros past its end)."""
+        ranks = range(len(self.boxes))
+        me = self.me
+        send = [(lambda a, b: b - a)(*self._meet(me, r)) if self.owner[me] else 0 for r in ranks]
+        meets = [self._meet(s, me) if self.owner[s] else (0, 0) for s in ranks]
+        out = self._all_to_all(local.reshape(-1) if self.owner[me] else local.new_empty(0),
+                               send, [b - a for a, b in meets])
+        piece = local.new_zeros(self.chunk)
+        idx = [_flat_index(self.shape, *self.boxes[s], a, b, local.device)
+               for s, (a, b) in enumerate(meets) if b > a]
+        if idx:
+            piece[torch.cat(idx) - me * self.chunk] = out
+        return piece
+
+    def from_flat(self, piece: torch.Tensor, local: torch.Tensor) -> None:
+        """This position's block of the parameter, written from the flat
+        ranges: the inverse of ``to_flat``."""
+        ranks = range(len(self.boxes))
+        me = self.me
+        meets = [self._meet(s, me) for s in ranks]
+        idx = [_flat_index(self.shape, *self.boxes[s], a, b, piece.device) - me * self.chunk
+               for s, (a, b) in enumerate(meets)]
+        out = self._all_to_all(piece[torch.cat(idx)], [b - a for a, b in meets],
+                               [(lambda a, b: b - a)(*self._meet(me, r)) for r in ranks])
+        local.copy_(out.reshape(local.shape))
 
 
 def opt_state_specs(param_specs: Any, cfg: OptConfig, mesh) -> Any:
@@ -198,18 +362,12 @@ def opt_state_specs(param_specs: Any, cfg: OptConfig, mesh) -> Any:
 
 
 def opt_state_from_specs(specs: Any, *, device=None) -> Any:
-    """Zero f32 moments and a zero count as DTensors laid out by
-    ``opt_state_specs`` (each rank allocates its own blocks only)."""
-    from torch.distributed.tensor import DTensor
-
+    """Zero moments (f32, or 8-bit payloads and scales) and a zero count as
+    DTensors laid out by ``opt_state_specs`` (each rank allocates its own
+    blocks only)."""
     def zeros(s):
         if isinstance(s, Q8State):
-            raise NotImplementedError("8-bit moments on a mesh: opt_state_specs gives "
-                                      "their layout only")
-        sh = s.sharding
-        local = torch.zeros(sh.shard_shape(s.shape), dtype=s.dtype,
-                            device=device or mesh_device(sh.mesh))
-        return DTensor.from_local(local, sh.mesh, sh.placements, run_check=False,
-                                  shape=s.shape, stride=contiguous_stride(s.shape))
+            return Q8State(q=zeros(s.q), scale=zeros(s.scale), shape=s.shape)
+        return zeros_from_struct(s, device=device)
 
     return tree_map(zeros, specs)

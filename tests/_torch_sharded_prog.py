@@ -1,11 +1,12 @@
 """One gloo rank of the sharded train steps (tests/test_torch_sharded_steps.py).
 
-    python tests/_torch_sharded_prog.py RANK WORLD STORE_FILE OUT_DIR
+    python tests/_torch_sharded_prog.py RANK WORLD STORE_FILE OUT_DIR [serve]
 
 Rendezvous through a FileStore, then every family of
-_torch_sharded_cases.py on each mesh of WORLD ranks; rank 0 writes
-``OUT_DIR/<family>.<mesh>.port.npz``.  Imports neither JAX nor the JAX
-package.
+_torch_sharded_cases.py on each mesh of WORLD ranks (with ``serve``, every
+serving case: tests/test_torch_sharded_serve.py); rank 0 writes
+``OUT_DIR/<family or case>.<mesh>.port.npz``.  Imports neither JAX nor the
+JAX package.
 """
 
 import math
@@ -16,11 +17,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from _torch_sharded_cases import FAMILIES, MESHES, port_run
+from _torch_sharded_cases import FAMILIES, MESHES, SERVE_CASES, port_run, port_serve
 
 
 def main() -> None:
     rank, world, store_file, out_dir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+    serve = sys.argv[5:] == ["serve"]
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store_file, world), rank=rank,
                             world_size=world, timeout=timedelta(seconds=60))
@@ -30,8 +32,8 @@ def main() -> None:
         if math.prod(dims) != world:
             continue
         mesh = make_test_mesh(dims, axes, device="cpu")
-        for fam in FAMILIES:
-            res = port_run(fam, mesh, dp)
+        for fam in SERVE_CASES if serve else FAMILIES:
+            res = (port_serve if serve else port_run)(fam, mesh, dp)
             if rank == 0:
                 np.savez(f"{out_dir}/{fam}.{mname}.port.npz", **res)
     dist.barrier()

@@ -1037,8 +1037,9 @@ def test_compress_tree_on_card_is_bit_identical_to_cpu(cuda):
         assert torch.equal(ed[k].cpu(), ec[k]), k
 
 
-@pytest.mark.parametrize("family", ["starcoder2", "granite_moe", "sage_full", "gatedgcn",
-                                    "mind"])
+@pytest.mark.parametrize("family", ["starcoder2", "starcoder2_h3", "granite_moe",
+                                    "granite_accum", "deepseek_q8", "sage_full", "gatedgcn",
+                                    "schnet_mol", "schnet_graph", "graphcast", "mind"])
 def test_sharded_step_on_one_nccl_rank_matches_unsharded(cuda, family):
     """Two steps of a reduced config on a (1, 1) mesh (one NCCL rank:
     parameters by ``param_specs``, moments by ``opt_state_specs``, inputs by
@@ -1051,3 +1052,17 @@ def test_sharded_step_on_one_nccl_rank_matches_unsharded(cuda, family):
     mesh = make_test_mesh((1, 1), ("data", "model"), device="cuda")
     assert mesh.device_type == "cuda"
     check_records(port_run(family, mesh, ("data",)), port_run(family, device=cuda), family)
+
+
+@pytest.mark.parametrize("case", ["prefill_granite", "decode_starcoder2", "decode_starcoder2_bf16",
+                                  "decode_kv1", "decode_qwen_int8", "decode_qwen_int8_kv1",
+                                  "decode_deepseek", "mind_serve", "mind_retrieval"])
+def test_sharded_serving_on_one_nccl_rank_matches_plain(cuda, case):
+    """Prefill, decode against DTensor caches and MIND's scores on a (1, 1)
+    mesh of one NCCL rank against the plain path on the card, within
+    tests/test_torch_sharded_serve.py's tolerances."""
+    from _torch_sharded_cases import check_serve, port_serve
+    from repro_torch.launch.mesh import make_test_mesh
+
+    mesh = make_test_mesh((1, 1), ("data", "model"), device="cuda")
+    check_serve(port_serve(case, mesh, ("data",)), port_serve(case, device=cuda), case)
