@@ -5,6 +5,7 @@
     python3 chip_smoke.py --scale 18 # a shorter rehearsal of phases 6 to 9
     python3 chip_smoke.py --scale 18 --only-models  # phases 1, 6 and 12 alone
     python3 chip_smoke.py --scale 18 --only-models --trainer  # and phase 11 with 13
+    python3 chip_smoke.py --only-dryrun  # phase 14 alone
 
 Phases (any failure raises and the script exits non-zero, printing no
 result):
@@ -184,8 +185,8 @@ result):
    with shardings= equal to the unsharded restore; 13e a table of
    per-device parameter and optimizer-state GB of every train cell of the
    registry on (16, 16) and (2, 16, 16) from shard_shape, beside the
-   card's memory (state only: the port's step adds one layer gathered at a
-   time); 13f (inside phase 11) starcoder2-3b at full width: a
+   card's memory (state only: each cell's activations, peak and fit
+   verdict come from the dry-run, phase 14 and launch/dryrun.py); 13f (inside phase 11) starcoder2-3b at full width: a
    grad_accum=2 step on DTensor tokens bit for bit the plain grad_accum=2
    step from the same state, a batch_chunks=2 prefill = the plain prefill,
    8 decode tokens through the sharded decode with DTensor caches = phase
@@ -196,11 +197,23 @@ result):
    (inside 12f) mind's serve_p99 and retrieval_cand through sharded serving
    = the plain scores within 1e-5 of max, p50 beside the plain p50; every
    part's seconds and peak GB beside the plain path's;
-14. a line of launches by path, then one JSON line with each kernel's
+14. the dry-run (repro_torch.launch.dryrun, launch/roofline.py) and the
+   examples, as processes of their own (a fake world cannot be made beside
+   this process's NCCL world): 14a the dry-run CLI on fake CUDA tensors of
+   fake 256- and 512-rank worlds for starcoder2-3b x decode_32k and steiner
+   x lvj_1k, each record ok; 14b the dry-run's prediction for phase 13a's
+   cell (starcoder2-3b at full width, one (8, 64) sharded step on a (1, 1)
+   mesh) held against a real step of it in this process: matmul FLOPs
+   (FlopCounterMode around the step) and the bytes of the parameters and
+   optimizer state equal exactly, the predicted peak printed beside
+   max_memory_allocated (not gated); 14c examples/torch_quickstart.py,
+   torch_serve_queries.py and torch_build_store.py on the card, each
+   asserting its own checks;
+15. a line of launches by path, then one JSON line with each kernel's
    launches on its paths (the top-K ones of phase 9 included), its error and
    mismatches against the plain version, and its time beside its bound and
    the plain version's time;
-15. last line: {"ok": true, "device": {...}}.
+16. last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one card.
 """
@@ -2908,8 +2921,9 @@ def phase13e_state_table(dev):
     """13e: per-device bytes of the parameters and optimizer state
     (``shard_shape`` of ``param_specs`` and ``opt_state_specs``, host
     arithmetic only) of every train cell of the registry on the two
-    production meshes, beside this card's memory.  State only: the
-    activations and the fit verdict wait for the dry-run slice."""
+    production meshes, beside this card's memory.  State only: each
+    cell's activations, peak and fit verdict come from the dry-run
+    (phase 14, ``launch/dryrun.py``)."""
     import math as _m
 
     import torch
@@ -2957,7 +2971,8 @@ def phase13e_state_table(dev):
                              "quantized_moments": opt.quantized,
                              "share_of_card": (p_gb + o_gb) / card_gb})
     log(f"phase 13e: per-device parameters + optimizer state from shard_shape (host "
-        f"arithmetic; STATE ONLY: activations and the fit verdict wait for the dry-run slice; "
+        f"arithmetic; state only: each cell's activations, peak and fit verdict come from the "
+        f"dry-run, phase 14 and python -m repro_torch.launch.dryrun; "
         f"the port's sharded step also holds one layer gathered over the ZeRO axes at a time, "
         f"its shard of 'model' kept split), beside this card's {card_gb:.1f} GB:")
     for r in rows:
@@ -3881,6 +3896,173 @@ def phase12_models(dev, holder, root, graph_job):
     return rec, model_launches
 
 
+# ---- phase 14: the dry-run and the examples, each a process of its own
+
+DRYRUN_CELLS = (("starcoder2-3b", "decode_32k"), ("steiner", "lvj_1k"))
+EXAMPLES = ("torch_quickstart.py", "torch_serve_queries.py", "torch_build_store.py")
+PREDICT_14B = """
+import json
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch.dryrun import predict_lm_step
+cell = ShapeSpec(name="13a", kind="train", seq_len={s}, global_batch={b})
+print(json.dumps(predict_lm_step("starcoder2-3b", cell, dims=(1, 1), device="cuda")))
+"""
+
+
+def phase14_start(root, out_dir):
+    """Starts 14a's dry-run CLIs, 14b's prediction and 14c's examples, all
+    at once (each with the port on its path); returns {name: Popen}."""
+    import os
+
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(root / "src"), env.get("PYTHONPATH"))
+                                        if p)
+    cmds = {f"14a {a} x {c}": [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+                               "--shape", c, "--mesh", "both", "--force", "--out", str(out_dir)]
+            for a, c in DRYRUN_CELLS}
+    cmds["14b prediction"] = [sys.executable, "-c",
+                              PREDICT_14B.format(s=TRAIN_S, b=TRAIN_B)]
+    cmds.update({f"14c {e}": [sys.executable, str(root / "examples" / e)] for e in EXAMPLES})
+    return {k: subprocess.Popen(c, cwd=str(root), env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True) for k, c in cmds.items()}
+
+
+def phase14_wait(procs, t0, limit_s=600):
+    """Each process's (returncode, stdout, stderr tail, seconds since
+    ``t0`` when it ended), read by a thread each; raises on a failed one
+    after all have ended."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(p):
+        try:
+            stdout, stderr = p.communicate(timeout=limit_s)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            stdout, stderr = p.communicate()
+        return p.returncode, stdout, stderr[-3000:], time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(procs)) as pool:
+        futures = {k: pool.submit(one, p) for k, p in procs.items()}
+        out = {k: f.result() for k, f in futures.items()}
+    bad = {k: v for k, v in out.items() if v[0] != 0}
+    if bad:
+        raise AssertionError("phase 14: processes failed: " + json.dumps(
+            {k: {"rc": v[0], "stdout": v[1][-2000:], "stderr": v[2]} for k, v in bad.items()}))
+    return out
+
+
+def phase14b_real_step(dev):
+    """14b: phase 13a's cell for real: starcoder2-3b at full width from a
+    seeded init, one (8, 64) sharded step on the (1, 1) mesh under
+    FlopCounterMode; the parameters' and moments' bytes, the step's
+    max_memory_allocated (after a reset, with what earlier phases still
+    hold) and its own share above the state held before the step."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.optim.adamw import opt_state_specs
+    from repro_torch.tree import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    cfg = get_arch("starcoder2-3b").model
+    opt_cfg = OptConfig(lr=1e-3)  # phase 11's
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    opt_state = adamw_init(params, opt_cfg)
+    mesh = one_rank_mesh(dev)
+    specs = tf.param_specs(cfg, mesh)
+    ospecs = opt_state_specs(specs, opt_cfg, mesh)
+    cell = ShapeSpec(name="13a", kind="train", seq_len=TRAIN_S, global_batch=TRAIN_B)
+    tok = torch.from_numpy(TokenStream(cfg.vocab, TRAIN_B, TRAIN_S, seed=0).batch_at(0)).to(dev)
+    dtok = tf.input_specs(cfg, cell, mesh)["tokens"].sharding.distribute(tok)
+    step = tf.make_train_step(cfg, opt_cfg, ("data",), param_shardings=specs)
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+                   if isinstance(t, torch.Tensor))
+
+    rec = {"params_bytes": nbytes(params), "opt_bytes": nbytes(opt_state), "held_bytes": held}
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with FlopCounterMode(display=False) as fc:
+        _, _, loss = step(wrap(params, specs), wrap(opt_state, ospecs), dtok)
+    sync()
+    rec.update(flops=fc.get_total_flops(), loss=float(loss),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               state_before_step=before - held)
+    del params, opt_state, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase14_dryrun(dev, root):
+    """Phase 14 (14a, 14b, 14c); returns its record."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    out_dir = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    try:
+        t0 = time.perf_counter()
+        procs = phase14_start(root, out_dir)
+        real = phase14b_real_step(dev)
+        real_s = time.perf_counter() - t0
+        runs = phase14_wait(procs, t0)
+        records = [json.loads(f.read_text()) for f in sorted(out_dir.glob("*.json"))]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    rec = {"seconds": {k: round(v[3], 1) for k, v in runs.items()}, "14b_real_s": real_s}
+    # 14a
+    for k, (_, stdout, _, _) in runs.items():
+        if k.startswith("14a"):
+            for line in stdout.splitlines():
+                log(f"phase 14a: {line}")
+    if len(records) != 2 * len(DRYRUN_CELLS):
+        raise AssertionError(f"14a: {len(records)} dry-run records")
+    for r in records:
+        if r["status"] != "ok" or r["device"] != "cuda":
+            raise AssertionError(f"14a: a dry-run cell failed: {json.dumps(r)[:3000]}")
+    rec["14a"] = [{k: r[k] for k in ("arch", "shape", "mesh", "trace_s", "state_bytes",
+                                     "peak_bytes", "memory", "roofline", "collective_groups")}
+                  | ({"layer_terms": r["layer_terms"]} if "layer_terms" in r else {})
+                  for r in records]
+    # 14b
+    pred = json.loads([ln for ln in runs["14b prediction"][1].splitlines()
+                       if ln.startswith("{")][-1])
+    step_peak = real["max_memory_allocated"] - real["held_bytes"]
+    rec["14b"] = {"predicted": pred, "real": real, "peak_ratio": pred["peak_bytes"] / step_peak}
+    log(f"phase 14b: starcoder2-3b at full width, one ({TRAIN_B}, {TRAIN_S}) sharded step on "
+        f"the (1, 1) mesh: matmul FLOPs predicted {pred['flops']:.0f} (dry-run, fake CUDA "
+        f"tensors, layer-calibrated) against {real['flops']} counted around the real step; "
+        f"parameters {pred['params_bytes']} / {real['params_bytes']} bytes, optimizer state "
+        f"{pred['opt_bytes']} / {real['opt_bytes']} bytes; peak predicted "
+        f"{pred['peak_bytes'] / 1e9:.2f} GB against max_memory_allocated "
+        f"{real['max_memory_allocated'] / 1e9:.2f} GB, of which {real['held_bytes'] / 1e9:.2f}"
+        f" GB held before the state was made: the step's own {step_peak / 1e9:.2f} GB, ratio "
+        f"{rec['14b']['peak_ratio']:.3f} (recorded, not gated); loss {real['loss']:.6f}")
+    if (pred["flops"] != real["flops"] or pred["params_bytes"] != real["params_bytes"]
+            or pred["opt_bytes"] != real["opt_bytes"]):
+        raise AssertionError(f"14b: the prediction differs from the real step: {rec['14b']}")
+    # 14c
+    for e in EXAMPLES:
+        _, stdout, _, s = runs[f"14c {e}"]
+        log(f"phase 14c: examples/{e} on {torch.cuda.get_device_name(0)} ({s:.1f} s): "
+            + " | ".join(stdout.strip().splitlines()[-3:]))
+    rec["14c"] = {e: runs[f"14c {e}"][1] for e in EXAMPLES}
+    log(f"phase 14: {json.dumps(rec['seconds'])} s a process; 14b's real step "
+        f"{real_s:.1f} s")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=23, help="RMAT scale of phases 6 and 7")
@@ -3892,6 +4074,8 @@ def main(argv=None) -> int:
                     help="a rehearsal of phase 12: phases 1, 6 and 12 only, no result line")
     ap.add_argument("--trainer", action="store_true",
                     help="with --only-models: phase 11 (and 13a, 13c, 13d inside it) too")
+    ap.add_argument("--only-dryrun", action="store_true",
+                    help="a rehearsal of phase 14 alone (no kernel build), no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -3910,6 +4094,14 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     t_start = t0 = time.perf_counter()
+    if args.only_dryrun:
+        log(f"phase 1: {smi}; torch {torch.__version__} (CUDA {torch.version.cuda})")
+        rec = phase14_dryrun(dev, root)
+        log(f"script {time.perf_counter() - t_start:.1f} s after the imports")
+        if args.json:
+            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json).write_text(json.dumps({"device": smi, "dryrun": rec}, indent=1))
+        return 0
     _build.build_all()
     build_s = time.perf_counter() - t0
     log(f"phase 1: {smi}; torch {torch.__version__} (CUDA {torch.version.cuda}); "
@@ -4035,6 +4227,9 @@ def main(argv=None) -> int:
     # inside phase 12)
     state_rec = phase13e_state_table(dev)
     done("13e")
+    # ---- phase 14 (the dry-run and the examples)
+    dryrun_rec = phase14_dryrun(dev, root)
+    done("14")
 
     # ---- the launches by path and the kernels line
     by_path = {"minplus_call (pallas, phase 6)": rec["launches_per_solve"] * 4,
@@ -4092,7 +4287,7 @@ def main(argv=None) -> int:
              "schedules_full_width": sched_rec, "scale16_lane_launches": lanes16,
              "scale16_store_launches": store16, "store_full_width": store_rec,
              "mesh": mesh_rec, "obs": obs_rec, "trainer": trainer_rec, "models": models_rec,
-             "state_per_device": state_rec, "launches_by_path": by_path,
+             "state_per_device": state_rec, "dryrun": dryrun_rec, "launches_by_path": by_path,
              "kernel_times": times, "kernels": kernels, "seconds": total_s}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

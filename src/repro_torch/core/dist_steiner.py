@@ -40,7 +40,7 @@ mean over every shard's finite weights, rounded once
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -434,6 +434,38 @@ def _finish(st, gids, off, esrc, edst, ew, *, S, mst_algo, pair_chunks, gather_s
             rec.hist, rec.histr)
 
 
+@dataclasses.dataclass
+class _Loop:
+    """The carry of one fixpoint loop: this rank's block, its counters,
+    the shard's per-call views, and what the host loop reads or keeps."""
+
+    st: VoronoiState
+    gids: torch.Tensor
+    rec: _Round
+    views: tuple
+    dirty: Optional[torch.Tensor] = None  # frontier: rows still to pop
+    wsums: Optional[torch.Tensor] = None  # bucket: weight sums over every rank
+    theta: np.float32 = np.float32(0.0)  # bucket: the host's threshold
+
+
+@dataclasses.dataclass(frozen=True)
+class DistRounds:
+    """The fixpoint of :func:`make_dist_steiner` apart from its host loop.
+
+    ``init(*shard, seeds)`` builds the loop's carry (:class:`_Loop`) and
+    ``round(loop, it)`` runs round ``it``, advancing ``loop`` and returning
+    the flag tensor that the host loop reads (its one host sync a round);
+    neither reads a tensor on the host, so both run on fake tensors
+    (``launch/dryrun.py`` runs init and one round).  In mode "bucket" the
+    host sets ``loop.theta`` between rounds from Δ, which the real path
+    reads from ``loop.wsums`` (:func:`delta_from_sums`) unless the config
+    fixes it.
+    """
+
+    init: Callable
+    round: Callable
+
+
 def make_dist_steiner(
     mesh: meshmod.Mesh,
     cfg: DistSteinerConfig,
@@ -451,7 +483,22 @@ def make_dist_steiner(
     :class:`EllPartition` layout.  Every rank returns the same outputs: the
     vertex arrays gathered to (npad,), the rest replicated.
     """
-    replica_axes = tuple(replica_axes)
+    return _build(mesh, cfg, vert_axis, tuple(replica_axes))[0]
+
+
+def make_dist_rounds(
+    mesh: meshmod.Mesh,
+    cfg: DistSteinerConfig,
+    *,
+    vert_axis: str = "model",
+    replica_axes: Sequence[str] = ("data",),
+) -> DistRounds:
+    """The init and the round of :func:`make_dist_steiner`'s fixpoint, over
+    the same shard arguments (:class:`DistRounds`)."""
+    return _build(mesh, cfg, vert_axis, tuple(replica_axes))[1]
+
+
+def _build(mesh: meshmod.Mesh, cfg: DistSteinerConfig, vert_axis: str, replica_axes: tuple):
     all_axes = replica_axes + (vert_axis,)
     S, nb = cfg.num_seeds, cfg.nb
     n_blocks = mesh.shape[vert_axis]
@@ -468,6 +515,7 @@ def make_dist_steiner(
     off = my_blk * nb
     is_r0 = all(mesh.coords[a] == 0 for a in replica_axes)
     n_ghost = npad - cfg.n  # phantom padding vertices, never reached
+    my_ghost = nb - min(max(cfg.n - off, 0), nb)  # those of this block
     per_rank = cfg.telemetry_per_rank
     n_ranks = mesh.axis_size(all_axes) if per_rank else 0
     H = cfg.telemetry_rounds
@@ -495,18 +543,24 @@ def make_dist_steiner(
                        pair_chunks=cfg.pair_chunks, gather_state=gather_state,
                        g_state=g_vert, g_all=g_all, iters=iters, rec=rec)
 
-    def body(src, dst, w, seeds):
-        dev = src.device
+    def edge_init(src, dst, w, seeds):
         st, gids = _init_block(seeds, off, nb)
-        my_ghost = int((gids >= cfg.n).sum())
         ldst = dst - off  # the partitioner puts every dst in this block
         sin = (src >= off) & (src < off + nb)
         lsrc = torch.clamp(src - off, 0, nb - 1)
-        if cfg.mode == "bucket":
-            delta = (np.float32(cfg.delta) if cfg.delta is not None
-                     else delta_from_sums(all_reduce(weight_sums(w), SUM, g_all)))
-        theta = np.float32(0.0)
-        rec = _Round(H, n_ranks, dev)
+        wsums = None
+        if cfg.mode == "bucket" and cfg.delta is None:
+            wsums = all_reduce(weight_sums(w), SUM, g_all)
+        return _Loop(st, gids, _Round(H, n_ranks, src.device), (src, w, ldst, sin, lsrc),
+                     wsums=wsums)
+
+    def edge_round(loop, it):
+        """One global round of modes "dense" and "bucket": the (dist, lab)
+        all-gather, ``local_steps`` relaxations, the replica MIN passes and
+        the round's counts.  Returns the (2,) f32 flag over every rank:
+        (any vertex improved, the largest finite distance)."""
+        src, w, ldst, sin, lsrc = loop.views
+        st, theta = loop.st, loop.theta
 
         def local_relax(cur, distf, labf):
             """One relaxation against the (possibly stale) gathered state;
@@ -520,98 +574,116 @@ def make_dist_steiner(
             new, _ = lex_update(cand, lab_s, src, ldst, cur)
             return new, _count(torch.isfinite(cand))
 
+        distf, labf = gather_state(st.dist, st.lab)
+        cur = st
+        msg_i = torch.zeros((), dtype=torch.int64, device=src.device)
+        for _ in range(cfg.local_steps):
+            cur, att = local_relax(cur, distf, labf)
+            msg_i += att
+        del distf, labf
+        if g_rep is not None:
+            cur = VoronoiState(*lex_pmin(cur.dist, cur.lab, cur.pred, g_rep))
+        diff = (cur.dist != st.dist) | (cur.lab != st.lab) | (cur.pred != st.pred)
+        imp_l = _count(diff)
+        fin = torch.isfinite(cur.dist)
+        # bucket: the frontier is the vertices under the threshold;
+        # dense has none, its active set IS the improved-vertex set
+        front_l = _count(fin & (cur.dist <= float(theta))) if cfg.mode == "bucket" else imp_l
+        unr_l = _count(~fin)
+        imp, front, unr = all_reduce(torch.stack([imp_l, front_l, unr_l]), SUM, g_vert)
+        msg_g = all_reduce(msg_i[None], SUM, g_all)[0]
+        rows = None
+        if per_rank:
+            rows = _rank_rows([r0(front_l), msg_i, r0(imp_l), r0(unr_l - my_ghost)], g_all)
+        loop.rec.add(it, front, msg_g, imp, unr - n_ghost, rows)
+        mx_l = torch.where(fin, cur.dist, -INF).max()
+        loop.st = cur
+        return all_reduce(torch.stack([(imp_l > 0).to(torch.float32), mx_l]), MAX, g_all)
+
+    def body(src, dst, w, seeds):
+        loop = edge_init(src, dst, w, seeds)
+        if cfg.mode == "bucket":
+            delta = (np.float32(cfg.delta) if cfg.delta is not None
+                     else delta_from_sums(loop.wsums))
         it, work = 0, True
         while work and it < cap:
-            distf, labf = gather_state(st.dist, st.lab)
-            cur = st
-            msg_i = torch.zeros((), dtype=torch.int64, device=dev)
-            for _ in range(cfg.local_steps):
-                cur, att = local_relax(cur, distf, labf)
-                msg_i += att
-            del distf, labf
-            if g_rep is not None:
-                cur = VoronoiState(*lex_pmin(cur.dist, cur.lab, cur.pred, g_rep))
-            diff = (cur.dist != st.dist) | (cur.lab != st.lab) | (cur.pred != st.pred)
-            imp_l = _count(diff)
-            fin = torch.isfinite(cur.dist)
-            # bucket: the frontier is the vertices under the threshold;
-            # dense has none, its active set IS the improved-vertex set
-            front_l = _count(fin & (cur.dist <= float(theta))) if cfg.mode == "bucket" else imp_l
-            unr_l = _count(~fin)
-            imp, front, unr = all_reduce(torch.stack([imp_l, front_l, unr_l]), SUM, g_vert)
-            msg_g = all_reduce(msg_i[None], SUM, g_all)[0]
-            rows = None
-            if per_rank:
-                rows = _rank_rows([r0(front_l), msg_i, r0(imp_l), r0(unr_l - my_ghost)], g_all)
-            rec.add(it, front, msg_g, imp, unr - n_ghost, rows)
-            mx_l = torch.where(fin, cur.dist, -INF).max()
-            flag = all_reduce(torch.stack([(imp_l > 0).to(torch.float32), mx_l]), MAX, g_all)
-            changed, max_fin = flag.tolist()  # the round's one host sync
+            theta = loop.theta
+            changed, max_fin = edge_round(loop, it).tolist()  # the round's one host sync
             if cfg.mode == "bucket":
                 # terminate only on a quiet round with every source active
                 done = not changed and theta >= max_fin
                 if not changed:
-                    theta = np.float32(theta + delta)
+                    loop.theta = np.float32(theta + delta)
                 work = not done
             else:
                 work = bool(changed)
-            st = cur
             it += 1
-        return finish(st, src, dst, w, gids, it, rec)
+        return finish(loop.st, src, dst, w, loop.gids, it, loop.rec)
 
-    def frontier_body(nbr, wgt, row2v, seeds):
-        """Paper §IV message prioritization over the sharded ELL view: each
-        rank pops its top-K lowest-distance dirty rows a round and relaxes
-        only their edges; candidates reach their (possibly remote) owner
-        through the lexicographic MIN over every rank."""
-        dev = nbr.device
+    def frontier_init(nbr, wgt, row2v, seeds):
         st, gids = _init_block(seeds, off, nb)
-        rb = nbr.shape[0]
-        K = min(cfg.frontier_size, rb)
+        K = min(cfg.frontier_size, nbr.shape[0])
         lrow = torch.clamp(row2v - off, 0, nb - 1).long()
         # rows with no finite edge can never send: never in the queue
         has_edges = torch.isfinite(wgt).any(dim=1)
         dirty = torch.isin(row2v, seeds) & has_edges
-        my_ghost = int((gids >= cfg.n).sum())
-        rec = _Round(H, n_ranks, dev)
+        return _Loop(st, gids, _Round(H, n_ranks, nbr.device),
+                     (nbr, wgt, row2v, lrow, has_edges, K), dirty=dirty)
+
+    def frontier_round(loop, it):
+        """One round of mode "frontier": each rank pops its top-K
+        lowest-distance dirty rows and relaxes only their edges; candidates
+        reach their (possibly remote) owner through the lexicographic MIN
+        over every rank.  Returns the (1,) flag: any row still dirty."""
+        nbr, wgt, row2v, lrow, has_edges, K = loop.views
+        st, dirty = loop.st, loop.dirty
+        rowdist = torch.where(dirty, st.dist[lrow], INF)
+        rows = smallest_k(rowdist, K)
+        sel = torch.isfinite(rowdist[rows])
+        dirty[rows] &= ~sel
+        lsel = lrow[rows]
+        cand = st.dist[lsel][:, None] + torch.where(sel[:, None], wgt[rows], INF)
+        k = cand.shape[1]
+        labc = torch.where(sel, st.lab[lsel], IMAX)[:, None].expand(K, k)
+        srcc = torch.where(sel, row2v[rows], IMAX)[:, None].expand(K, k)
+        m, ml, ms = lex_segmin(cand, labc, srcc, nbr[rows].reshape(-1), npad)
+        m, ml, ms = (x[off:off + nb] for x in lex_pmin(m, ml, ms, g_all))
+        same = m == st.dist
+        upd = torch.isfinite(m) & (
+            (m < st.dist) | (same & (ml < st.lab)) | (same & (ml == st.lab) & (ms < st.pred)))
+        loop.st = VoronoiState(dist=torch.where(upd, m, st.dist),
+                               lab=torch.where(upd, ml, st.lab),
+                               pred=torch.where(upd, ms, st.pred))
+        # rows of updated vertices become dirty again
+        dirty |= upd[lrow] & has_edges
+        imp_l = _count(upd)
+        unr_l = _count(~torch.isfinite(loop.st.dist))
+        att = _count(torch.isfinite(cand))
+        front_l = _count(sel)  # rows popped from this rank's queue
+        imp, unr = all_reduce(torch.stack([imp_l, unr_l]), SUM, g_vert)
+        msg_g, front = all_reduce(torch.stack([att, front_l]), SUM, g_all)
+        rows_r = None
+        if per_rank:  # pops and attempts are this rank's own
+            rows_r = _rank_rows([front_l, att, r0(imp_l), r0(unr_l - my_ghost)], g_all)
+        loop.rec.add(it, front, msg_g, imp, unr - n_ghost, rows_r)
+        return all_reduce(_count(dirty)[None].clamp(max=1), MAX, g_all)
+
+    def frontier_body(nbr, wgt, row2v, seeds):
+        """Paper §IV message prioritization over the sharded ELL view (see
+        ``frontier_round``)."""
+        loop = frontier_init(nbr, wgt, row2v, seeds)
         it, work = 0, True
         while work and it < cap:
-            rowdist = torch.where(dirty, st.dist[lrow], INF)
-            rows = smallest_k(rowdist, K)
-            sel = torch.isfinite(rowdist[rows])
-            dirty[rows] &= ~sel
-            lsel = lrow[rows]
-            cand = st.dist[lsel][:, None] + torch.where(sel[:, None], wgt[rows], INF)
-            k = cand.shape[1]
-            labc = torch.where(sel, st.lab[lsel], IMAX)[:, None].expand(K, k)
-            srcc = torch.where(sel, row2v[rows], IMAX)[:, None].expand(K, k)
-            m, ml, ms = lex_segmin(cand, labc, srcc, nbr[rows].reshape(-1), npad)
-            m, ml, ms = (x[off:off + nb] for x in lex_pmin(m, ml, ms, g_all))
-            same = m == st.dist
-            upd = torch.isfinite(m) & (
-                (m < st.dist) | (same & (ml < st.lab)) | (same & (ml == st.lab) & (ms < st.pred)))
-            st = VoronoiState(dist=torch.where(upd, m, st.dist), lab=torch.where(upd, ml, st.lab),
-                              pred=torch.where(upd, ms, st.pred))
-            # rows of updated vertices become dirty again
-            dirty |= upd[lrow] & has_edges
-            imp_l = _count(upd)
-            unr_l = _count(~torch.isfinite(st.dist))
-            att = _count(torch.isfinite(cand))
-            front_l = _count(sel)  # rows popped from this rank's queue
-            imp, unr = all_reduce(torch.stack([imp_l, unr_l]), SUM, g_vert)
-            msg_g, front = all_reduce(torch.stack([att, front_l]), SUM, g_all)
-            rows_r = None
-            if per_rank:  # pops and attempts are this rank's own
-                rows_r = _rank_rows([front_l, att, r0(imp_l), r0(unr_l - my_ghost)], g_all)
-            rec.add(it, front, msg_g, imp, unr - n_ghost, rows_r)
-            work = bool(all_reduce(_count(dirty)[None].clamp(max=1), MAX, g_all))
+            work = bool(frontier_round(loop, it))  # the round's one host sync
             it += 1
         # this shard's directed edges from the ELL rows (padding slots carry
         # +inf weight, inert in the pair tables)
         esrc = row2v[:, None].expand(nbr.shape).reshape(-1)
-        return finish(st, esrc, nbr.reshape(-1), wgt.reshape(-1), gids, it, rec)
+        return finish(loop.st, esrc, nbr.reshape(-1), wgt.reshape(-1), loop.gids, it, loop.rec)
 
-    return frontier_body if cfg.mode == "frontier" else body
+    if cfg.mode == "frontier":
+        return frontier_body, DistRounds(frontier_init, frontier_round)
+    return body, DistRounds(edge_init, edge_round)
 
 
 @dataclasses.dataclass(frozen=True)

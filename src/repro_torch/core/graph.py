@@ -211,3 +211,9 @@ def ell_view_cached(g: Graph, k: int) -> EllGraph:
     """Memoized :func:`to_ell` keyed on ``(graph_token(g), k)``
     (:func:`graph_cached`)."""
     return graph_cached(g, (int(k),), lambda: to_ell(g, k))
+
+
+def sort_by_dst(g: Graph):
+    """Returns a copy with edges stably sorted by destination, and the perm."""
+    order = torch.argsort(g.dst, stable=True)
+    return Graph(src=g.src[order], dst=g.dst[order], w=g.w[order], n=g.n), order

@@ -143,3 +143,9 @@ def tree_edge_sets(st: VoronoiState, tree: SteinerTree, n_lanes=None):
             es.add((min(a, b), max(a, b)))
         out.append(frozenset(es))
     return out
+
+
+def tree_edge_list(st: VoronoiState, tree: SteinerTree):
+    """Host-side: materializes the undirected edge set {(u, v)} of G_S
+    (single lane; thin wrapper over :func:`tree_edge_sets`)."""
+    return set(tree_edge_sets(st, tree)[0])
