@@ -2860,7 +2860,7 @@ def phase13g_q8(dev, rec):
     """13g: granite-moe-1b-a400m at full width with the 8-bit AdamW: one
     plain step from fresh moments, then the parameters restored and one
     step on DTensor views with 8-bit moments laid out by
-    ``opt_state_specs`` (``opt_state_from_specs``): parameters, payloads,
+    ``opt_state_specs`` (``zeros_from_specs``): parameters, payloads,
     scales and loss bit for bit."""
     import torch
 
@@ -2869,7 +2869,8 @@ def phase13g_q8(dev, rec):
     from repro_torch.data.tokens import TokenStream
     from repro_torch.models import transformer as tf
     from repro_torch.optim import OptConfig, adamw_init
-    from repro_torch.optim.adamw import opt_state_from_specs, opt_state_specs
+    from repro_torch.distributed.sharding import zeros_from_specs
+    from repro_torch.optim.adamw import opt_state_specs
     from repro_torch.tree import tree_leaves
 
     cfg = get_arch("granite-moe-1b-a400m").model
@@ -2891,7 +2892,7 @@ def phase13g_q8(dev, rec):
     del p0
     mesh = one_rank_mesh(dev)
     specs = tf.param_specs(cfg, mesh)
-    dstate = opt_state_from_specs(opt_state_specs(specs, q8, mesh))
+    dstate = zeros_from_specs(opt_state_specs(specs, q8, mesh))
     cell = ShapeSpec(name="13g", kind="train", seq_len=Q8_S, global_batch=Q8_B)
     dtok = tf.input_specs(cfg, cell, mesh)["tokens"].sharding.distribute(tok)
     torch.cuda.reset_peak_memory_stats()
@@ -3905,7 +3906,7 @@ import json
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.launch.dryrun import predict_lm_step
 cell = ShapeSpec(name="13a", kind="train", seq_len={s}, global_batch={b})
-print(json.dumps(predict_lm_step("starcoder2-3b", cell, dims=(1, 1), device="cuda")))
+print(json.dumps(predict_lm_step("starcoder2-3b", cell, device="cuda")))
 """
 
 

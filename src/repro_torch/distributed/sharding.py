@@ -34,6 +34,7 @@ say how its inputs and outputs are laid out.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Sequence, Tuple
 
@@ -417,6 +418,26 @@ def zeros_from_struct(s: ShapeDtypeStruct, *, device=None):
                         device=device or mesh_device(sh.mesh))
     return DTensor.from_local(local, sh.mesh, sh.placements, run_check=False,
                               shape=s.shape, stride=contiguous_stride(s.shape))
+
+
+def zeros_from_specs(specs, *, device=None):
+    """DTensors of zeros laid out by a tree of ShapeDtypeStructs: dicts,
+    tuples (a KV cache stack) and dataclasses (an 8-bit optimizer state's
+    payload and scales) inside it are rebuilt around their zeros; each rank
+    allocates its own blocks only."""
+    def one(s):
+        if isinstance(s, ShapeDtypeStruct):
+            return zeros_from_struct(s, device=device)
+        if isinstance(s, dict):
+            return {k: one(v) for k, v in s.items()}
+        if isinstance(s, tuple):
+            return tuple(one(v) for v in s)
+        if dataclasses.is_dataclass(s):
+            return dataclasses.replace(s, **{f.name: one(getattr(s, f.name))
+                                             for f in dataclasses.fields(s)})
+        return s
+
+    return one(specs)
 
 
 def distribute_tree(tree, shardings, *, device=None):

@@ -52,13 +52,15 @@ import torch.distributed as dist
 
 from repro_torch.configs import ALL_IDS, get_arch
 from repro_torch.configs.base import ShapeSpec
-from repro_torch.distributed.sharding import mesh_shape
+from repro_torch.distributed.sharding import (NamedSharding, ShapeDtypeStruct, entry_axes,
+                                              mesh_shape, zeros_from_specs)
 from repro_torch.launch import roofline as rl
 from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import recsys as rec_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.optim import OptConfig
 from repro_torch.optim.adamw import Q8State, opt_state_specs
+from repro_torch.tree import tree_map
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "dryrun_out"
 
@@ -130,10 +132,6 @@ def _lm_analytic_gb(cfg, shape, mesh, dp_axes, accum, state_gb) -> dict:
     work = 0.0
     if shape.kind in ("train", "prefill"):
         chunks = max(accum, 1)  # grad-accum (train) or batch chunking (prefill)
-        if shape.kind == "prefill":
-            tok_dev = shape.global_batch * shape.seq_len // dsz
-            chunks = max(1, min(shape.global_batch // dsz, tok_dev // 8192))
-            chunks = 1 << (chunks.bit_length() - 1)
         tokm = shape.global_batch * shape.seq_len // dsz // chunks
         ff_shard = max(cfg.d_ff, cfg.n_shared * cfg.moe_d_ff if cfg.moe else 0)
         ff_shard = max(ff_shard // msz, d)
@@ -162,23 +160,6 @@ def _lm_analytic_gb(cfg, shape, mesh, dp_axes, accum, state_gb) -> dict:
 # ----------------------------------------------------------------------------
 # Counting one traced step
 # ----------------------------------------------------------------------------
-
-
-def _zeros(specs):
-    """Fake zeros laid out by a tree of ShapeDtypeStructs (8-bit states
-    included): each rank allocates its own block only."""
-    from repro_torch.distributed.sharding import zeros_from_struct
-
-    def one(s):
-        if isinstance(s, dict):
-            return {k: one(v) for k, v in s.items()}
-        if isinstance(s, tuple):
-            return tuple(one(v) for v in s)
-        if isinstance(s, Q8State):
-            return Q8State(one(s.q), one(s.scale), s.shape)
-        return zeros_from_struct(s)
-
-    return one(specs)
 
 
 def _state_tensors(*trees):
@@ -301,13 +282,18 @@ def _steiner_dims(shape: ShapeSpec, mesh, dp_axes):
     return n, nb, eb, S
 
 
+def _lm_opt(cfg) -> OptConfig:
+    """An LM's optimizer: 8-bit moments above 1e11 parameters."""
+    return OptConfig(quantized=cfg.params_count() > 1e11)
+
+
 def _family_specs(arch, shape: ShapeSpec, mesh, dp_axes):
     """(parameter, optimizer state or None, input) specs of a model cell."""
     cfg = arch.model
     if arch.family == "lm":
         pspecs = tf_mod.param_specs(cfg, mesh)
         ispecs = tf_mod.input_specs(cfg, shape, mesh, dp_axes)
-        ocfg = OptConfig(quantized=cfg.params_count() > 1e11)
+        ocfg = _lm_opt(cfg)
     elif arch.family == "gnn":
         pspecs = gnn_mod.param_specs(cfg, gnn_mod.effective_graph(shape)[2], mesh)
         ispecs = gnn_mod.input_specs(cfg, shape, mesh, dp_axes)
@@ -371,15 +357,36 @@ def _lm_variant(cfg, ld: int, lm: int):
     return dataclasses.replace(cfg, n_layers=ld)
 
 
-def _lm_cost(cfg, shape, mesh, dp_axes, chunks: int, warm: bool = False):
+def _layer_split(stack, mesh) -> int:
+    """The ranks a stack's layer dim is split over in its parameter specs
+    (1: every rank holds a block of every layer)."""
+    sizes = mesh_shape(mesh)
+    return max((math.prod(sizes[a] for a in entry_axes(s.sharding.spec[0]))
+                for s in _leaves(stack)), default=1)
+
+
+def _variant_param_specs(cfg, full, mesh):
+    """The parameter specs of ``cfg``, a shallower variant of ``full``,
+    sharded as ``full``'s are: the ZeRO axes (across pods above 1e11
+    parameters) and the dim that each leaf splits over them depend on the
+    depth, and a variant is to trace the full-depth program's layout."""
+    return tree_map(lambda s, f: ShapeDtypeStruct(s.shape, s.dtype,
+                                                  NamedSharding(mesh, f.sharding.spec)),
+                    tf_mod.param_specs(cfg, mesh), tf_mod.param_specs(full, mesh))
+
+
+def _lm_cost(cfg, shape, mesh, dp_axes, chunks: int, warm: bool = False, full=None):
     """One traced step of ``cfg`` at the production chunking, kv_chunk
-    1024 and sequence-sharded boundaries (``warm``: see :func:`_count`)."""
-    pspecs = tf_mod.param_specs(cfg, mesh)
-    params = _zeros(pspecs)
-    ins = _zeros(tf_mod.input_specs(cfg, shape, mesh, dp_axes))
+    1024 and sequence-sharded boundaries, with the parameter specs and the
+    optimizer of ``full`` (by default ``cfg``) when ``cfg`` is a shallower
+    variant of it (``warm``: see :func:`_count`)."""
+    full = cfg if full is None else full
+    pspecs = _variant_param_specs(cfg, full, mesh)
+    params = zeros_from_specs(pspecs)
+    ins = zeros_from_specs(tf_mod.input_specs(cfg, shape, mesh, dp_axes))
     if shape.kind == "train":
-        ocfg = OptConfig(quantized=cfg.params_count() > 1e11)
-        state = _zeros(opt_state_specs(pspecs, ocfg, mesh))
+        ocfg = _lm_opt(full)
+        state = zeros_from_specs(opt_state_specs(pspecs, ocfg, mesh))
         step = tf_mod.make_train_step(cfg, ocfg, dp_axes, kv_chunk=1024, grad_accum=chunks,
                                       seq_shard=True, param_shardings=pspecs)
         return _count(lambda: step(params, state, ins["tokens"]), params, state, ins,
@@ -399,28 +406,42 @@ def _lm_calibrated_cost(cfg, shape, mesh, dp_axes, chunks: int):
     """Layer-count-calibrated cost and peak.
 
     Tracing all 61 layers of deepseek-v3 eagerly is slow, so each cell runs
-    at full width and two or three blocks, and the terms are combined
+    at full width and two or three layers, and the terms are combined
     linearly in layers:
 
-        total = const + Ld·(dense block) + Lm·(moe block)
+        total = const + Ld·(dense layer) + Lm·(moe layer)
 
-    from (dense, MoE) blocks (1, 2), (2, 2) and (1, 3) of a model with
-    both types, else from 2 and 3 blocks: a shallower model peaks at
-    another op than a deeper one.  FLOPs, bytes and collective bytes of an eager step are
-    sums over its ops, so they are exact in layers; the ``MemTracker`` peak
-    is extrapolated the same way.  A layer stack whose layer count divides
-    the data axis (qwen1.5-32b's 64 layers) is split over its layers at
-    full depth but over a width dim at these depths (``_fsdp``), as in the
-    reference's calibration: its terms describe the width-split layout.
+    from (dense, MoE) depths (1, 2), (2, 2) and (1, 3) of a model with
+    both types, else from depths 2 and 3: a shallower model peaks at
+    another op than a deeper one.  Every variant takes the full-depth
+    model's parameter specs and optimizer (:func:`_lm_cost`), so it runs
+    the full-depth program's layout.  FLOPs, bytes and collective bytes of
+    an eager step are sums over its ops, so they are exact in layers; the
+    ``MemTracker`` peak is extrapolated the same way.
+
+    A stack whose layer dim is split over u ranks at full depth
+    (qwen1.5-32b's 64 layers over "data": each rank holds whole layers and
+    gathers one at a time) is traced at full depth instead, once a model
+    of u layers in each such stack has warmed the process (:func:`_count`):
+    its train step's peak is not linear in layers, so no pair of shallow
+    variants extrapolates it.  Its per-layer terms are then empty.
     """
+    Ld, Lm = tf_mod.layer_counts(cfg)
+    specs = tf_mod.param_specs(cfg, mesh)
+    ud, um = (_layer_split(specs.get(k, {}), mesh) for k in ("dense", "moe"))
+    if ud > 1 or um > 1:
+        _lm_cost(_lm_variant(cfg, min(Ld, ud), min(Lm, um)), shape, mesh, dp_axes, chunks,
+                 full=cfg)
+        cost, groups = _lm_cost(cfg, shape, mesh, dp_axes, chunks)
+        return cost, groups, {}
     groups = {}
 
     def costs(ld, lm, warm=False):
-        cost, g = _lm_cost(_lm_variant(cfg, ld, lm), shape, mesh, dp_axes, chunks, warm)
+        cost, g = _lm_cost(_lm_variant(cfg, ld, lm), shape, mesh, dp_axes, chunks, warm,
+                           full=cfg)
         groups.update(g)
         return cost
 
-    Ld, Lm = tf_mod.layer_counts(cfg)
     if cfg.moe and Ld > 0:
         c12 = costs(1, 2, warm=True)
         dense_l = tuple_sub(costs(2, 2), c12)
@@ -442,10 +463,10 @@ def _layer_row(t) -> dict:
 
 
 def _traced_step(step, pspecs, ospecs, ispecs):
-    params, batch = _zeros(pspecs), _zeros(ispecs)
+    params, batch = zeros_from_specs(pspecs), zeros_from_specs(ispecs)
     if ospecs is None:
         return _count(lambda: step(params, batch), params, batch, warm=True)
-    state = _zeros(ospecs)
+    state = zeros_from_specs(ospecs)
     return _count(lambda: step(params, state, batch), params, state, batch, warm=True)
 
 
@@ -571,22 +592,22 @@ def fake_mesh(dims, device: str = "cuda"):
     return _MESH[key]
 
 
-def predict_lm_step(arch_id: str, shape: ShapeSpec, dims=(1, 1), grad_accum: int = 1,
-                    device: str = "cuda") -> dict:
-    """The dry-run's prediction for one LM step of ``arch_id`` at full width
-    and depth on a ``dims`` ("data", "model") mesh of a fake world: matmul
-    FLOPs, HBM and wire bytes and the peak (calibrated in layers), and the
-    bytes of the parameters and optimizer state, for holding against a
-    real step of the same cell."""
+def predict_lm_step(arch_id: str, shape: ShapeSpec, device: str = "cuda") -> dict:
+    """The dry-run's prediction for one LM train step of ``arch_id`` at
+    full width and depth, without microbatches, on the (1, 1) ("data",
+    "model") mesh of a fake world of one rank: matmul FLOPs, HBM and wire
+    bytes and the peak (calibrated in layers), and the bytes of the
+    parameters and optimizer state, for holding against a real step of the
+    same cell on one card."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     cfg = get_arch(arch_id).model
-    mesh = fake_mesh(dims, device)
+    mesh = fake_mesh((1, 1), device)
     with FakeTensorMode(allow_non_fake_inputs=True):
-        cost, _, layers = _lm_calibrated_cost(cfg, shape, mesh, ("data",), grad_accum)
+        cost, _, layers = _lm_calibrated_cost(cfg, shape, mesh, ("data",), 1)
     pspecs = tf_mod.param_specs(cfg, mesh)
-    ospecs = opt_state_specs(pspecs, OptConfig(quantized=cfg.params_count() > 1e11), mesh)
-    return {"arch": arch_id, "mesh": list(dims), "flops": cost[0], "bytes_hbm": cost[1],
+    ospecs = opt_state_specs(pspecs, _lm_opt(cfg), mesh)
+    return {"arch": arch_id, "mesh": [1, 1], "flops": cost[0], "bytes_hbm": cost[1],
             "bytes_wire": sum(cost[2].values()), "peak_bytes": cost[4],
             "params_bytes": _specs_bytes(pspecs), "opt_bytes": _specs_bytes(ospecs),
             "layer_terms": {k: _layer_row(t) for k, t in layers.items()}}

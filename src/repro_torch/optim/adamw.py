@@ -30,8 +30,7 @@ import torch
 
 from repro_torch.distributed.sharding import (P, NamedSharding, ShapeDtypeStruct, axes_index,
                                               axis_names, contiguous_stride, is_dtensor,
-                                              mesh_shape, shift_placements, stack_slices,
-                                              zeros_from_struct)
+                                              mesh_shape, shift_placements, stack_slices)
 from repro_torch.tree import tree_leaves, tree_map
 
 QBLOCK = 128
@@ -359,15 +358,3 @@ def opt_state_specs(param_specs: Any, cfg: OptConfig, mesh) -> Any:
         "mu": tree_map(mk, param_specs),
         "count": ShapeDtypeStruct((), torch.int32, NamedSharding(mesh, P())),
     }
-
-
-def opt_state_from_specs(specs: Any, *, device=None) -> Any:
-    """Zero moments (f32, or 8-bit payloads and scales) and a zero count as
-    DTensors laid out by ``opt_state_specs`` (each rank allocates its own
-    blocks only)."""
-    def zeros(s):
-        if isinstance(s, Q8State):
-            return Q8State(q=zeros(s.q), scale=zeros(s.scale), shape=s.shape)
-        return zeros_from_struct(s, device=device)
-
-    return tree_map(zeros, specs)

@@ -3,7 +3,7 @@
 
     python tests/_torch_dryrun_prog.py coll
     python tests/_torch_dryrun_prog.py cells OUT_DIR
-    python tests/_torch_dryrun_prog.py calib
+    python tests/_torch_dryrun_prog.py calib [wide]
 
 ``coll``: a fake world of 16 ranks; under ``StepCounter`` the collectives
 of the reference's parser test (bf16[16,1024] all-gather, f32[256]
@@ -19,7 +19,11 @@ mind x serve_p99.
 ``calib``: on a fake (2, 2) world, the layer-calibrated cost and peak of
 reduced starcoder2-3b (dense) at 4 layers and deepseek-v3-671b (one dense,
 then MoE layers) at 5, train, prefill (2 batch chunks) and decode, beside
-a direct count at that depth.
+a direct count at that depth.  ``calib wide``: the same for configs
+widened until ZeRO shards their stacks (``CALIB_WIDE``): qwen1.5-32b at 4
+layers and deepseek-v3-671b at 2 dense and 4 MoE, whose layer dims "data"
+splits, and qwen1.5-32b at 5, whose layer dim it does not split where 2
+layers' would be.
 
 Each prints one JSON line.  Imports neither JAX nor the JAX package.
 """
@@ -87,28 +91,47 @@ def cells(out_dir: str) -> dict:
     return out
 
 
-def calib() -> dict:
+# (name, arch, widths, layers after the dense ones, kinds): each stack's
+# leaves at 2^20 elements or more, so that ZeRO shards them at their first
+# dim that "data" divides
+CALIB_WIDE = (
+    ("qwen1.5-32b wide", "qwen1.5-32b", {"d_ff": 4096}, 4, ("train", "prefill", "decode")),
+    ("qwen1.5-32b wide odd", "qwen1.5-32b", {"d_ff": 4096}, 5, ("train",)),
+    ("deepseek-v3-671b wide", "deepseek-v3-671b",
+     {"first_dense_layers": 2, "d_ff": 8192, "moe_d_ff": 512}, 4, ("train",)),
+)
+
+
+def calib(wide: bool) -> dict:
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import dryrun as dr
+    from repro_torch.models import transformer as tf
 
     mesh = dr.fake_mesh((2, 2), device="cpu")
     shapes = ((ShapeSpec("t", "train", seq_len=64, global_batch=8), 1),
               (ShapeSpec("p", "prefill", seq_len=64, global_batch=8), 2),
               (ShapeSpec("d", "decode", seq_len=64, global_batch=8), 1))
+    kinds = ("train", "prefill", "decode")
+    cases = CALIB_WIDE if wide else [(a, a, {}, 4, kinds)
+                                     for a in ("starcoder2-3b", "deepseek-v3-671b")]
     out = {}
-    for arch in ("starcoder2-3b", "deepseek-v3-671b"):
-        red = get_arch(arch).reduced
-        cfg = dataclasses.replace(red, n_layers=4 + red.first_dense_layers)
+    for name, arch, widths, depth, run in cases:
+        cfg = dataclasses.replace(get_arch(arch).reduced, **widths)
+        cfg = dataclasses.replace(cfg, n_layers=depth + cfg.first_dense_layers)
+        specs = tf.param_specs(cfg, mesh)
+        split = [dr._layer_split(specs.get(k, {}), mesh) for k in ("dense", "moe")]
         for shape, chunks in shapes:
+            if shape.kind not in run:
+                continue
             with FakeTensorMode(allow_non_fake_inputs=True):
                 cal, _, layers = dr._lm_calibrated_cost(cfg, shape, mesh, ("data",), chunks)
                 direct, _ = dr._lm_cost(cfg, shape, mesh, ("data",), chunks)
-            out[f"{arch} x {shape.kind}"] = {"calibrated": cal, "direct": direct,
-                                             "layers": sorted(layers),
-                                             "depth": [cfg.n_layers, cfg.first_dense_layers]}
+            out[f"{name} x {shape.kind}"] = {
+                "calibrated": cal, "direct": direct, "layers": sorted(layers), "split": split,
+                "depth": [cfg.n_layers, cfg.first_dense_layers]}
     return out
 
 
@@ -120,7 +143,7 @@ def main() -> None:
     elif mode == "cells":
         res = cells(sys.argv[2])
     else:
-        res = calib()
+        res = calib(sys.argv[2:] == ["wide"])
     print(json.dumps(res), flush=True)
     dist.destroy_process_group()
 

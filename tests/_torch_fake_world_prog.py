@@ -29,28 +29,12 @@ import time
 import torch
 import torch.distributed as dist
 
+from repro_torch.distributed.sharding import zeros_from_specs
+
 LM_ARCHS = ("starcoder2-3b", "qwen1.5-32b", "deepseek-v3-671b", "granite-moe-1b-a400m")
 GNN_CELLS = (("graphsage-reddit", "ogb_products"), ("gatedgcn", "full_graph_sm"),
              ("schnet", "molecule"), ("graphcast", "full_graph_sm"))
 MIND_CELLS = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
-
-
-def zeros_like_specs(specs):
-    """DTensors of zeros laid out by a tree of ShapeDtypeStructs (tuples and
-    8-bit states inside it too): each rank allocates its own block."""
-    from repro_torch.distributed.sharding import zeros_from_struct
-    from repro_torch.optim.adamw import Q8State
-
-    def one(s):
-        if isinstance(s, dict):
-            return {k: one(v) for k, v in s.items()}
-        if isinstance(s, tuple):
-            return tuple(one(v) for v in s)
-        if isinstance(s, Q8State):
-            return Q8State(one(s.q), one(s.scale), s.shape)
-        return zeros_from_struct(s)
-
-    return one(specs)
 
 
 def depth2(cfg):
@@ -82,11 +66,11 @@ def lm_cells(mesh, dp, multi):
             if not shp.applicable:
                 continue
             t0 = time.perf_counter()
-            params = zeros_like_specs(pspecs)
-            ins = zeros_like_specs(tf.input_specs(cfg, shp, mesh, dp))
+            params = zeros_from_specs(pspecs)
+            ins = zeros_from_specs(tf.input_specs(cfg, shp, mesh, dp))
             if shp.kind == "train":
                 opt = OptConfig(quantized=arch == "deepseek-v3-671b")
-                state = zeros_like_specs(opt_state_specs(pspecs, opt, mesh))
+                state = zeros_from_specs(opt_state_specs(pspecs, opt, mesh))
                 step = tf.make_train_step(cfg, opt, dp, grad_accum=2 if multi else 4,
                                           param_shardings=pspecs)
                 params, state, loss = step(params, state, ins["tokens"])
@@ -115,10 +99,10 @@ def gnn_cells(mesh, dp):
         shp = next(s for s in spec.shapes if s.name == cell)
         t0 = time.perf_counter()
         pspecs = gnn.param_specs(cfg, shp.d_feat, mesh)
-        params = zeros_like_specs(pspecs)
+        params = zeros_from_specs(pspecs)
         opt = OptConfig()
-        state = zeros_like_specs(opt_state_specs(pspecs, opt, mesh))
-        batch = zeros_like_specs(gnn.input_specs(cfg, shp, mesh, dp))
+        state = zeros_from_specs(opt_state_specs(pspecs, opt, mesh))
+        batch = zeros_from_specs(gnn.input_specs(cfg, shp, mesh, dp))
         step = gnn.make_train_step(cfg, shp, opt, dp_axes=dp)
         params, state, loss = step(params, state, batch)
         out[f"{arch} x {cell}"] = {"out": shapes(loss), "s": time.perf_counter() - t0}
@@ -138,11 +122,11 @@ def mind_cells(mesh, dp):
     for cell in MIND_CELLS:
         shp = next(s for s in spec.shapes if s.name == cell)
         t0 = time.perf_counter()
-        params = zeros_like_specs(pspecs)
-        batch = zeros_like_specs(recsys.input_specs(cfg, shp, mesh, dp))
+        params = zeros_from_specs(pspecs)
+        batch = zeros_from_specs(recsys.input_specs(cfg, shp, mesh, dp))
         if shp.kind == "recsys_train":
             opt = OptConfig()
-            state = zeros_like_specs(opt_state_specs(pspecs, opt, mesh))
+            state = zeros_from_specs(opt_state_specs(pspecs, opt, mesh))
             params, state, res = recsys.make_step(cfg, shp, opt)(params, state, batch)
         else:
             res = recsys.make_step(cfg, shp)(params, batch)
@@ -172,10 +156,10 @@ def flops(mesh, arch: str) -> dict:
     cfg = depth2(spec.model)
     shp = next(s for s in spec.shapes if s.kind == "train")
     pspecs = tf.param_specs(cfg, mesh)
-    params = zeros_like_specs(pspecs)
+    params = zeros_from_specs(pspecs)
     opt = OptConfig()
-    state = zeros_like_specs(opt_state_specs(pspecs, opt, mesh))
-    tokens = zeros_like_specs(tf.input_specs(cfg, shp, mesh, ("data",)))["tokens"]
+    state = zeros_from_specs(opt_state_specs(pspecs, opt, mesh))
+    tokens = zeros_from_specs(tf.input_specs(cfg, shp, mesh, ("data",)))["tokens"]
     step = tf.make_train_step(cfg, opt, ("data",), param_shardings=pspecs)
     with FlopCounterMode(display=False) as fc:
         step(params, state, tokens)

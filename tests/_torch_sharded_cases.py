@@ -173,10 +173,10 @@ def port_run(family: str, mesh=None, dp_axes=(), device="cpu"):
 
     import repro_torch.configs as tc
     from repro_torch.configs import base as tbase
-    from repro_torch.distributed.sharding import distribute_tree
+    from repro_torch.distributed.sharding import distribute_tree, zeros_from_specs
     from repro_torch.models import gnn, recsys, transformer
     from repro_torch.optim import OptConfig, adamw_init
-    from repro_torch.optim.adamw import opt_state_from_specs, opt_state_specs
+    from repro_torch.optim.adamw import opt_state_specs
 
     cfg, shp = config(family, tc), shape(family, tbase)
     opt = OptConfig(lr=LR, quantized=family in QUANTIZED)
@@ -205,7 +205,7 @@ def port_run(family: str, mesh=None, dp_axes=(), device="cpu"):
         state = adamw_init(params, opt)
     else:
         params = distribute_tree(params, specs)
-        state = opt_state_from_specs(opt_state_specs(specs, opt, mesh))
+        state = zeros_from_specs(opt_state_specs(specs, opt, mesh))
         if family in LM_FAMILIES:
             batch = {"tokens": ispecs["tokens"].sharding.distribute(batch["tokens"])}
         else:

@@ -11,7 +11,10 @@
   CLI, one process a mesh), steiner x lvj_1k, a GNN and a MIND cell.
 * The layer calibration: calibrated FLOPs, bytes, collective bytes and peak
   equal a direct count at full depth on reduced configs at 4 layers (a
-  dense arch) and 5 (a dense layer, then MoE layers).
+  dense arch) and 5 (a dense layer, then MoE layers), and on configs wide
+  enough for ZeRO: stacks split over their layer dim (traced at full
+  depth), and a 5-layer stack whose 2-layer variant alone would split;
+  the variants of a full-size model take its parameter specs.
 
 Each fake world is a process of its own; the processes start together.
 """
@@ -35,8 +38,12 @@ MESHES = {"pod16x16": (False, (16, 16), ("data", "model")),
           "pod2x16x16": (True, (2, 16, 16), ("pod", "data", "model"))}
 CELLS = [(a, s.name, m) for m in MESHES for a in ALL_IDS for s in get_arch(a).shapes
          if s.applicable]
-CALIB = [(a, k) for a in ("starcoder2-3b", "deepseek-v3-671b")
+CALIB = [(a, k) for a in ("starcoder2-3b", "deepseek-v3-671b", "qwen1.5-32b wide")
          for k in ("train", "prefill", "decode")]
+CALIB += [("qwen1.5-32b wide odd", "train"), ("deepseek-v3-671b wide", "train")]
+# the ranks each stack's layer dim is split over, (dense, MoE)
+CALIB_SPLIT = {"starcoder2-3b": [1, 1], "deepseek-v3-671b": [1, 1], "qwen1.5-32b wide": [2, 1],
+               "qwen1.5-32b wide odd": [1, 1], "deepseek-v3-671b wide": [2, 2]}
 
 
 def _env(**extra):
@@ -48,7 +55,8 @@ def _env(**extra):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every process of this file, started together: the reference's
-    arithmetic, the CLI on both meshes, three more cells, the calibration."""
+    arithmetic, the CLI on both meshes, three more cells, the calibration
+    (reduced configs, and configs wide enough for ZeRO)."""
     out = tmp_path_factory.mktemp("dryrun")
     prog = os.path.join(_DIR, "_torch_dryrun_prog.py")
     cmds = {
@@ -59,6 +67,7 @@ def runs(tmp_path_factory):
                  str(out)], _env()),
         "cells": ([sys.executable, prog, "cells", str(out)], _env()),
         "calib": ([sys.executable, prog, "calib"], _env()),
+        "calib wide": ([sys.executable, prog, "calib", "wide"], _env()),
     }
     procs = {k: subprocess.Popen(c, env=e, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                  text=True) for k, (c, e) in cmds.items()}
@@ -140,12 +149,39 @@ def test_run_cell_on_a_fake_world(runs, cell):
 
 @pytest.mark.parametrize("arch,kind", CALIB)
 def test_calibrated_terms_equal_a_direct_count(runs, arch, kind):
-    res = runs["calib"]
+    res = runs["calib wide" if " wide" in arch else "calib"]
     assert isinstance(res, dict), res
     r = res[f"{arch} x {kind}"]
     assert r["calibrated"] == r["direct"]
-    want = {"starcoder2-3b": ["dense"], "deepseek-v3-671b": ["dense", "moe"]}[arch]
-    assert r["layers"] == want
+    want = ["dense", "moe"] if arch.startswith("deepseek") else ["dense"]
+    split = CALIB_SPLIT[arch] != [1, 1]
+    assert r["layers"] == ([] if split else want)
+    assert r["split"] == CALIB_SPLIT[arch]
+
+
+@pytest.mark.parametrize("arch,dims,depth", [("qwen1.5-32b", (16, 16), (16, 0)),
+                                             ("deepseek-v3-671b", (2, 16, 16), (1, 2))])
+def test_variants_take_the_full_depth_layout(arch, dims, depth):
+    """A shallow model's own specs lay it out otherwise than the full-depth
+    model: qwen1.5-32b's 64 layers split over "data", 2 do not;
+    deepseek-v3-671b's 671B parameters take ZeRO across pods, 3 of its
+    layers do not.  The calibration's variants take the full model's specs
+    and its optimizer (8-bit moments above 1e11 parameters)."""
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves
+
+    def specs(tree):
+        return [s.sharding.spec for s in tree_leaves(tree)]
+
+    full = get_arch(arch).model
+    axes = ("data", "model") if len(dims) == 2 else ("pod", "data", "model")
+    mesh = AbstractMesh(dims, axes)
+    want = specs(tf.param_specs(full, mesh))
+    assert specs(dr._variant_param_specs(dr._lm_variant(full, *depth), full, mesh)) == want
+    shallow = dr._lm_variant(full, *((1, 2) if full.moe else (2, 0)))
+    assert specs(tf.param_specs(shallow, mesh)) != want
+    assert dr._lm_opt(full).quantized == full.moe
 
 
 def test_inapplicable_cell_is_skipped(tmp_path):
