@@ -6,6 +6,7 @@
     python3 chip_smoke.py --scale 18 --only-models  # phases 1, 6 and 12 alone
     python3 chip_smoke.py --scale 18 --only-models --trainer  # and phase 11 with 13
     python3 chip_smoke.py --only-dryrun  # phase 14 alone
+    python3 chip_smoke.py --scale 18 --only-analysis  # phases 1 and 15 alone
 
 Phases (any failure raises and the script exits non-zero, printing no
 result):
@@ -209,11 +210,25 @@ result):
    max_memory_allocated (not gated); 14c examples/torch_quickstart.py,
    torch_serve_queries.py and torch_build_store.py on the card, each
    asserting its own checks;
-15. a line of launches by path, then one JSON line with each kernel's
+15. the trace-safety analyzer and the runtime sanitizer
+   (src/repro_torch/analysis/, knobs.py), once phase 14's processes are
+   started: the ast gate over src/repro_torch against
+   ANALYSIS_BASELINE_TORCH.json (exit 0) and the six `--seed-violation`
+   spmd programs (exit 1 each, naming their rule), as processes started
+   together; a solve at scale 16 on the card and on the CPU under
+   `sanitizer()` with equal host-read counts; phase 6's graph prepared anew
+   from its host edges (its handle cannot stay on the card through phase
+   12f) and its warm full-width pallas solve (= phase 6's D and rounds) and
+   phase 7's 8-key batch, each under `sanitizer()`: bit for bit the
+   unguarded solve timed just before it, zero rebuilds, launches = rounds,
+   and the host reads (by kind), H2D copies and sync_debug_mode warnings
+   printed, the dispatch mode's count equal to the function mode's; each
+   process of phase 14 is timed to its own end, 14b's step alone;
+16. a line of launches by path, then one JSON line with each kernel's
    launches on its paths (the top-K ones of phase 9 included), its error and
    mismatches against the plain version, and its time beside its bound and
    the plain version's time;
-16. last line: {"ok": true, "device": {...}}.
+17. last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.  Needs one card.
 """
@@ -3928,10 +3943,12 @@ def phase14_start(root, out_dir):
                                 stderr=subprocess.PIPE, text=True) for k, c in cmds.items()}
 
 
-def phase14_wait(procs, t0, limit_s=600):
-    """Each process's (returncode, stdout, stderr tail, seconds since
-    ``t0`` when it ended), read by a thread each; raises on a failed one
-    after all have ended."""
+def phase14_watch(procs, t0, limit_s=600):
+    """Starts a thread a process that reads it to its end, so that each
+    one's seconds are its own whatever runs beside it; returns a function
+    that waits for them all and gives each process's (returncode, stdout,
+    stderr tail, seconds since ``t0`` when it ended), raising on a failed
+    one after all have ended."""
     from concurrent.futures import ThreadPoolExecutor
 
     def one(p):
@@ -3942,14 +3959,22 @@ def phase14_wait(procs, t0, limit_s=600):
             stdout, stderr = p.communicate()
         return p.returncode, stdout, stderr[-3000:], time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(procs)) as pool:
-        futures = {k: pool.submit(one, p) for k, p in procs.items()}
-        out = {k: f.result() for k, f in futures.items()}
-    bad = {k: v for k, v in out.items() if v[0] != 0}
-    if bad:
-        raise AssertionError("phase 14: processes failed: " + json.dumps(
-            {k: {"rc": v[0], "stdout": v[1][-2000:], "stderr": v[2]} for k, v in bad.items()}))
-    return out
+    pool = ThreadPoolExecutor(len(procs))
+    futures = {k: pool.submit(one, p) for k, p in procs.items()}
+
+    def wait():
+        try:
+            out = {k: f.result() for k, f in futures.items()}
+        finally:
+            pool.shutdown()
+        bad = {k: v for k, v in out.items() if v[0] != 0}
+        if bad:
+            raise AssertionError("phase 14: processes failed: " + json.dumps(
+                {k: {"rc": v[0], "stdout": v[1][-2000:], "stderr": v[2]}
+                 for k, v in bad.items()}))
+        return out
+
+    return wait
 
 
 def phase14b_real_step(dev):
@@ -4004,22 +4029,37 @@ def phase14b_real_step(dev):
     return rec
 
 
-def phase14_dryrun(dev, root):
-    """Phase 14 (14a, 14b, 14c); returns its record."""
+def phase14_dryrun(dev, root, p15=None):
+    """Phase 14 (14a, 14b, 14c), with phase 15 run once its processes are
+    started (before 14b's step) when ``p15`` holds phase 15's inputs
+    (emptied after it); returns phase 14's record and phase 15's (None
+    without ``p15``)."""
     import shutil
     import tempfile
 
     import torch
 
     out_dir = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    rec15 = None
+    procs = {}
     try:
         t0 = time.perf_counter()
         procs = phase14_start(root, out_dir)
+        wait = phase14_watch(procs, t0)
+        if p15:
+            rec15 = phase15_analysis(dev, root, p15)
+            p15.clear()  # phase 6's host edges
+            gc.collect()
+            torch.cuda.empty_cache()
+        t14b = time.perf_counter()
         real = phase14b_real_step(dev)
-        real_s = time.perf_counter() - t0
-        runs = phase14_wait(procs, t0)
+        real_s = time.perf_counter() - t14b
+        runs = wait()
         records = [json.loads(f.read_text()) for f in sorted(out_dir.glob("*.json"))]
     finally:
+        for p in procs.values():  # left running only when a phase failed
+            if p.poll() is None:
+                p.kill()
         shutil.rmtree(out_dir, ignore_errors=True)
     rec = {"seconds": {k: round(v[3], 1) for k, v in runs.items()}, "14b_real_s": real_s}
     # 14a
@@ -4061,7 +4101,191 @@ def phase14_dryrun(dev, root):
     rec["14c"] = {e: runs[f"14c {e}"][1] for e in EXAMPLES}
     log(f"phase 14: {json.dumps(rec['seconds'])} s a process; 14b's real step "
         f"{real_s:.1f} s")
+    return rec, rec15
+
+
+# ---- phase 15: the trace-safety analyzer and the runtime sanitizer
+# (src/repro_torch/analysis/, src/repro_torch/knobs.py)
+
+SEEDED_RULES = ("SP01", "SP02", "SP03", "NU01", "NU02", "DN01")
+
+
+def phase15_start(root):
+    """Starts the analyzer's host processes at once: the ast gate over
+    src/repro_torch against the committed baseline and the six seeded spmd
+    programs; returns {name: Popen}."""
+    import os
+
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(root / "src"), env.get("PYTHONPATH"))
+                                        if p)
+    cli = [sys.executable, "-m", "repro_torch.analysis"]
+    cmds = {"ast": cli + ["ast", "src/repro_torch", "--baseline",
+                          "ANALYSIS_BASELINE_TORCH.json", "--strict-expired"]}
+    cmds.update({f"seed {r}": cli + ["spmd", "--seed-violation", r] for r in SEEDED_RULES})
+    return {k: subprocess.Popen(c, cwd=str(root), env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True) for k, c in cmds.items()}
+
+
+def sanitized(fn, dev):
+    """``fn()`` under ``sanitizer()`` (the card's sync debug mode counted),
+    synchronized inside; returns (result, report, seconds)."""
+    import torch
+
+    from repro_torch.analysis.sanitize import sanitizer
+
+    t0 = time.perf_counter()
+    with sanitizer(device=dev) as rep:
+        out = fn()
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+    return out, rep, time.perf_counter() - t0
+
+
+def _report(rep) -> dict:
+    return {"host_reads": rep.host_reads, "dispatch_reads": rep.dispatch_reads,
+            "h2d": rep.h2d, "rebuilds": rep.rebuilds, "sync_warnings": rep.sync_warnings,
+            "reads_by_kind": dict(sorted(rep.reads_by_kind.items()))}
+
+
+def phase15_analysis(dev, root, p15):
+    """Phase 15: the analyzer's processes, and the sanitizer around phase
+    6's warm pallas solve, phase 7's 8-key batch and a scale-16 solve on the
+    card and on the CPU.  ``p15`` holds phase 6's host edges, config, seeds
+    and answer (D, rounds) and phase 7's 8-key batch and batch config; the
+    graph is prepared anew here.  Returns the record."""
+    from repro_torch.core.graph import from_edges
+    from repro_torch.data.graphs import rmat_edges, select_seeds
+    from repro_torch.kernels.minplus import minplus as kmod
+    from repro_torch.solver import SteinerSolver
+
+    t_phase = time.perf_counter()
+    procs = phase15_start(root)
+    seeds, distinct, bcfg = p15["seeds"], p15["batch"], p15["bcfg"]
+    rec = {"launches": {}}
+    # scale 16: the same solve's host reads on the card and on the CPU; first,
+    # so that the modes' one-off start (paid by a process's first guarded
+    # call) falls outside the full-width pair timed below
+    src, dst, w, n = rmat_edges(16, 8, max_weight=100, seed=0)
+    seeds16 = select_seeds(n, src, dst, 64, strategy="uniform", seed=1000)
+    reads16 = {}
+    for d in (dev, "cpu"):
+        h16 = SteinerSolver(p15["cfg"], device=d).prepare(from_edges(src, dst, w, n, pad_to=8,
+                                                                   device=d))
+        h16.solve(seeds16)
+        o16, r16, rec[f"scale16_{torch_device_type(d)}_s"] = sanitized(
+            lambda: h16.solve(seeds16), d)
+        reads16[str(torch_device_type(d))] = (_report(r16), o16.total_distance,
+                                              o16.telemetry.iterations)
+    (card, d_card, it_card), (host, d_host, it_host) = reads16["cuda"], reads16["cpu"]
+    rec["scale16"] = {"cuda": card, "cpu": host, "rounds": it_card}
+    log(f"phase 15: scale 16 (64 seeds): host reads card {card['host_reads']} = CPU "
+        f"{host['host_reads']} {json.dumps(card['reads_by_kind'])} (the CPU's dispatch mode "
+        f"alone sees {host['dispatch_reads']}); rounds {it_card} / {it_host}; D {d_card} / "
+        f"{d_host}; guarded {rec['scale16_cuda_s']:.3f} s on the card (with the modes' "
+        f"start when no earlier phase entered them), {rec['scale16_cpu_s']:.3f} s on the CPU")
+    if (card["host_reads"], card["reads_by_kind"], it_card, d_card) != (
+            host["host_reads"], host["reads_by_kind"], it_host, d_host) or card["rebuilds"]:
+        raise AssertionError(f"phase 15: scale 16 card vs CPU: {rec['scale16']}")
+    h, rec["prepare_s"] = timed(lambda: SteinerSolver(p15["cfg"], device=dev).prepare(
+        from_edges(*p15["g_host"], pad_to=8, device=dev)))
+
+    def check(what, rep, rounds, launched):
+        row = _report(rep)
+        rec[what] = row | {"rounds": rounds, "launches": launched}
+        log(f"phase 15: {what}: host reads {rep.host_reads} (dispatch mode "
+            f"{rep.dispatch_reads}) {json.dumps(row['reads_by_kind'])}, H2D copies {rep.h2d}, "
+            f"sync_debug_mode warnings {rep.sync_warnings}, rebuilds {rep.rebuilds}; "
+            f"{rounds} rounds, {launched} launches")
+        card = str(dev).startswith("cuda")  # a CPU rehearsal launches no kernel
+        if rep.rebuilds or card and (rep.dispatch_reads != rep.host_reads or launched != rounds):
+            raise AssertionError(f"phase 15: {what}: {rec[what]}")
+
+    # phase 6's warm full-width pallas solve (a cold one first)
+    h.solve(seeds)
+    plain, rec["plain_single_s"] = timed(lambda: h.solve(seeds))  # beside the guarded one
+    if (plain.total_distance, plain.telemetry.iterations) != (p15["D"], p15["rounds"]):
+        raise AssertionError(f"phase 15: the graph prepared anew solves to "
+                             f"{plain.total_distance} in {plain.telemetry.iterations} rounds, "
+                             f"phase 6's {p15['D']} in {p15['rounds']}")
+    kmod.minplus_call.launches = 0
+    out, rep, rec["single_s"] = sanitized(lambda: h.solve(seeds), dev)
+    same_raw(out.raw, plain.raw, "phase 15: the sanitized solve vs the unguarded one")
+    rec["launches"]["single"] = kmod.minplus_call.launches
+    check("single", rep, out.telemetry.iterations, kmod.minplus_call.launches)
+    log(f"phase 15: single: guarded {rec['single_s']:.3f} s, unguarded "
+        f"{rec['plain_single_s']:.3f} s just before it, under the same load")
+    # phase 7's eight distinct keys through the batch backend (a cold one first)
+    hb = SteinerSolver(bcfg, device=dev).prepare(h.graph)
+    hb.solve(distinct)
+    plain8, rec["plain_batch_s"] = timed(lambda: hb.solve(distinct))
+    kmod.minplus_call.lane_launches = 0
+    out8, rep8, rec["batch_s"] = sanitized(lambda: hb.solve(distinct), dev)
+    same_raw(out8.raw, plain8.raw, "phase 15: the sanitized batch vs the unguarded one")
+    rec["launches"]["lanes"] = kmod.minplus_call.lane_launches
+    check("batch", rep8, out8.telemetry.iterations, kmod.minplus_call.lane_launches)
+    log(f"phase 15: batch: guarded {rec['batch_s']:.3f} s, unguarded "
+        f"{rec['plain_batch_s']:.3f} s just before it")
+    del h, plain, out, hb, plain8, out8
+    # the analyzer's processes
+    runs = {}
+    for k, p in procs.items():
+        try:
+            stdout, _ = p.communicate(timeout=max(1.0, 300 - (time.perf_counter() - t_phase)))
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+                q.wait()
+            raise AssertionError(f"phase 15: {k} did not end in 300 s")
+        runs[k] = (p.returncode, stdout)
+    rc, stdout = runs.pop("ast")
+    log(f"phase 15: python -m repro_torch.analysis ast src/repro_torch --baseline "
+        f"ANALYSIS_BASELINE_TORCH.json: exit {rc}; {stdout.strip().splitlines()[-1]}")
+    if rc != 0:
+        raise AssertionError(f"phase 15: the ast gate failed:\n{stdout}")
+    rec["ast"] = stdout.strip().splitlines()[-1]
+    rec["seeds"] = {}
+    for rule in SEEDED_RULES:
+        rc, stdout = runs[f"seed {rule}"]
+        ids = sorted({m for m in SEEDED_RULES if f": {m} [" in stdout})
+        rec["seeds"][rule] = {"exit": rc, "rules": ids}
+        if rc != 1 or ids != [rule]:
+            raise AssertionError(f"phase 15: --seed-violation {rule}: exit {rc}, rules {ids}"
+                                 f"\n{stdout}")
+    log(f"phase 15: --seed-violation {', '.join(SEEDED_RULES)}: exit 1 each, naming its own "
+        "rule only")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 15: {rec['phase_s']:.1f} s")
     return rec
+
+
+def torch_device_type(d) -> str:
+    import torch
+
+    return torch.device(d).type
+
+
+def analysis_inputs(dev, scale, n_seeds):
+    """Phase 15's inputs made afresh (``--only-analysis``): phase 6's
+    configuration on an RMAT of ``scale`` with its answer, and eight
+    distinct seed sets of 16 through the batch backend."""
+    import numpy as np
+
+    from repro_torch.core.graph import from_edges
+    from repro_torch.data.graphs import rmat_edges, select_seeds
+    from repro_torch.solver import SolverConfig, SteinerSolver
+
+    g_host = rmat_edges(scale, 8, max_weight=100, seed=0)
+    src, dst, _, n = g_host
+    seeds = select_seeds(n, src, dst, n_seeds, strategy="uniform", seed=1000)
+    cfg = SolverConfig(backend="single", mode="pallas", ell_width=32, max_iters=10_000)
+    ref = SteinerSolver(cfg, device=dev).prepare(
+        from_edges(*g_host, pad_to=8, device=dev)).solve(seeds)
+    batch = np.stack([select_seeds(n, src, dst, 16, strategy="uniform", seed=2000 + i)
+                      for i in range(8)]).astype(np.int32)
+    return {"g_host": g_host, "cfg": cfg, "seeds": seeds, "batch": batch,
+            "bcfg": SolverConfig(backend="batch", mode="pallas", ell_width=32),
+            "D": ref.total_distance, "rounds": ref.telemetry.iterations}
 
 
 def main(argv=None) -> int:
@@ -4077,6 +4301,9 @@ def main(argv=None) -> int:
                     help="with --only-models: phase 11 (and 13a, 13c, 13d inside it) too")
     ap.add_argument("--only-dryrun", action="store_true",
                     help="a rehearsal of phase 14 alone (no kernel build), no result line")
+    ap.add_argument("--only-analysis", action="store_true",
+                    help="a rehearsal of phase 15 on an RMAT of --scale (phases 1 and 15), "
+                    "no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -4097,7 +4324,7 @@ def main(argv=None) -> int:
     t_start = t0 = time.perf_counter()
     if args.only_dryrun:
         log(f"phase 1: {smi}; torch {torch.__version__} (CUDA {torch.version.cuda})")
-        rec = phase14_dryrun(dev, root)
+        rec, _ = phase14_dryrun(dev, root)
         log(f"script {time.perf_counter() - t_start:.1f} s after the imports")
         if args.json:
             Path(args.json).parent.mkdir(parents=True, exist_ok=True)
@@ -4128,6 +4355,13 @@ def main(argv=None) -> int:
         seconds[phase] = round(time.perf_counter() - t_start - sum(seconds.values()), 1)
 
     done("1-2")
+    if args.only_analysis:
+        rec15 = phase15_analysis(dev, root, analysis_inputs(dev, args.scale, args.seeds))
+        log(f"script {time.perf_counter() - t_start:.1f} s after the imports")
+        if args.json:
+            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json).write_text(json.dumps({"device": smi, "analysis": rec15}, indent=1))
+        return 0
     if args.only_models:  # phase 6's handle, then phases 11 (with --trainer), 12, 13e
         graph_job = HostJob(reddit_graph_job)
         try:
@@ -4178,6 +4412,11 @@ def main(argv=None) -> int:
     if lane_launches == 0:
         raise AssertionError("the served stream launched no lane kernel")
     done("7")
+    # phase 15 (run inside phase 14) prepares phase 6's graph anew from its
+    # host edges: phase 6's handle (10.8 GB) cannot stay on the card through
+    # phase 12f (MIND's 66.7 GB peak)
+    p15 = {"g_host": g_host, "cfg": h.config, "seeds": single_in[0], "batch": lanes_in[0],
+           "bcfg": lanes_in[2], "D": rec["total_distance"], "rounds": rec["iterations"]}
     # ---- phase 8 (the blocked kernels' main path, full width)
     blocked_rec, hb, blocked_launches, blocked_lane_launches = phase8_blocked_full_width(
         dev, h, single_in, lanes_in)
@@ -4229,8 +4468,8 @@ def main(argv=None) -> int:
     state_rec = phase13e_state_table(dev)
     done("13e")
     # ---- phase 14 (the dry-run and the examples)
-    dryrun_rec = phase14_dryrun(dev, root)
-    done("14")
+    dryrun_rec, analysis_rec = phase14_dryrun(dev, root, p15)
+    done("14-15")
 
     # ---- the launches by path and the kernels line
     by_path = {"minplus_call (pallas, phase 6)": rec["launches_per_solve"] * 4,
@@ -4244,16 +4483,20 @@ def main(argv=None) -> int:
                "minplus_call (lanes, traced server, phase 10b)": obs_launches["lanes"],
                "every kernel (trainer, phase 11)": sum(trainer_launches.values()),
                "every kernel (GNN and MIND models, phase 12)": sum(model_launches.values()),
-               "minplus_call (Steiner sampler, phase 12e)": models_rec["12e"]["launches"]}
+               "minplus_call (Steiner sampler, phase 12e)": models_rec["12e"]["launches"],
+               "minplus_call (sanitized pallas, phase 15)": analysis_rec["launches"]["single"],
+               "minplus_call (lanes, sanitized batch, phase 15)":
+                   analysis_rec["launches"]["lanes"]}
     log(f"launches by path: {json.dumps(by_path)}")
     launches = {"minplus_call": rec["launches_per_solve"] * 4
                 + sched_launches["minplus_call (pallas_frontier)"]
                 + store_launches["minplus_call (pallas from a store)"]
                 + store_launches["minplus_call (pallas, compacted and overlay stores)"]
-                + obs_launches["single"] + models_rec["12e"]["launches"],
+                + obs_launches["single"] + models_rec["12e"]["launches"]
+                + analysis_rec["launches"]["single"],
                 "minplus_call (lanes)": lane_launches
                 + store_launches["minplus_call (lanes, store-backed server)"]
-                + obs_launches["lanes"],
+                + obs_launches["lanes"] + analysis_rec["launches"]["lanes"],
                 "minplus_blocked_call": blocked_launches
                 + sched_launches["minplus_blocked_call (pallas_frontier)"],
                 "minplus_blocked_call (lanes)": blocked_lane_launches,
@@ -4288,7 +4531,8 @@ def main(argv=None) -> int:
              "schedules_full_width": sched_rec, "scale16_lane_launches": lanes16,
              "scale16_store_launches": store16, "store_full_width": store_rec,
              "mesh": mesh_rec, "obs": obs_rec, "trainer": trainer_rec, "models": models_rec,
-             "state_per_device": state_rec, "dryrun": dryrun_rec, "launches_by_path": by_path,
+             "state_per_device": state_rec, "dryrun": dryrun_rec, "analysis": analysis_rec,
+             "launches_by_path": by_path,
              "kernel_times": times, "kernels": kernels, "seconds": total_s}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -42,6 +42,12 @@ checkpoint/ npz checkpoints in the reference's format (either package
 launch/    the fault-tolerant training loop ``python -m
            repro_torch.launch.train`` and the production and test
            ``DeviceMesh``es (``launch/mesh.py``)
+analysis/  the jitlint trace-safety analyzer: sync-free regions and rules
+           TS01–TS07 over the source (no torch import), recorded-op SPMD,
+           range and ownership rules SP01–SP03 / NU01–NU02 / DN01, the
+           runtime sanitizer; ``python -m repro_torch.analysis``
+knobs      which SolverConfig fields fix a memoized view (TS06), the
+           ``sync_free`` marker, and the memo-miss counters
 tree       nested dicts of tensors (the reference's pytrees)
 convert    numpy arrays of the JAX package -> this package's objects (graphs,
            Voronoi state, LM, GNN and MIND parameters, optimizer state)

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import mesh as meshmod
+from repro_torch.knobs import sync_free
 from repro_torch.core.distance_graph import edge_pair_tables
 from repro_torch.core.mesh import IMAX, MAX, SUM, all_gather, all_gather_tiled, all_reduce, lex_pmin
 from repro_torch.core.steiner import mst_parent
@@ -543,6 +544,7 @@ def _build(mesh: meshmod.Mesh, cfg: DistSteinerConfig, vert_axis: str, replica_a
                        pair_chunks=cfg.pair_chunks, gather_state=gather_state,
                        g_state=g_vert, g_all=g_all, iters=iters, rec=rec)
 
+    @sync_free
     def edge_init(src, dst, w, seeds):
         st, gids = _init_block(seeds, off, nb)
         ldst = dst - off  # the partitioner puts every dst in this block
@@ -554,6 +556,7 @@ def _build(mesh: meshmod.Mesh, cfg: DistSteinerConfig, vert_axis: str, replica_a
         return _Loop(st, gids, _Round(H, n_ranks, src.device), (src, w, ldst, sin, lsrc),
                      wsums=wsums)
 
+    @sync_free(static=("it",))
     def edge_round(loop, it):
         """One global round of modes "dense" and "bucket": the (dist, lab)
         all-gather, ``local_steps`` relaxations, the replica MIN passes and
@@ -569,7 +572,8 @@ def _build(mesh: meshmod.Mesh, cfg: DistSteinerConfig, vert_axis: str, replica_a
             lab_s = torch.where(sin, cur.lab[lsrc], labf[src])
             cand = dsrc + w
             if cfg.mode == "bucket":
-                cand = torch.where(dsrc <= float(theta), cand, INF)
+                # theta: the host's np.float32 threshold, not a tensor
+                cand = torch.where(dsrc <= float(theta), cand, INF)  # jitlint: ignore[TS03]
             del dsrc
             new, _ = lex_update(cand, lab_s, src, ldst, cur)
             return new, _count(torch.isfinite(cand))
@@ -588,7 +592,8 @@ def _build(mesh: meshmod.Mesh, cfg: DistSteinerConfig, vert_axis: str, replica_a
         fin = torch.isfinite(cur.dist)
         # bucket: the frontier is the vertices under the threshold;
         # dense has none, its active set IS the improved-vertex set
-        front_l = _count(fin & (cur.dist <= float(theta))) if cfg.mode == "bucket" else imp_l
+        front_l = (_count(fin & (cur.dist <= float(theta)))  # jitlint: ignore[TS03] (theta)
+                   if cfg.mode == "bucket" else imp_l)
         unr_l = _count(~fin)
         imp, front, unr = all_reduce(torch.stack([imp_l, front_l, unr_l]), SUM, g_vert)
         msg_g = all_reduce(msg_i[None], SUM, g_all)[0]
@@ -620,6 +625,7 @@ def _build(mesh: meshmod.Mesh, cfg: DistSteinerConfig, vert_axis: str, replica_a
             it += 1
         return finish(loop.st, src, dst, w, loop.gids, it, loop.rec)
 
+    @sync_free
     def frontier_init(nbr, wgt, row2v, seeds):
         st, gids = _init_block(seeds, off, nb)
         K = min(cfg.frontier_size, nbr.shape[0])
@@ -630,6 +636,7 @@ def _build(mesh: meshmod.Mesh, cfg: DistSteinerConfig, vert_axis: str, replica_a
         return _Loop(st, gids, _Round(H, n_ranks, nbr.device),
                      (nbr, wgt, row2v, lrow, has_edges, K), dirty=dirty)
 
+    @sync_free(static=("it",))
     def frontier_round(loop, it):
         """One round of mode "frontier": each rank pops its top-K
         lowest-distance dirty rows and relaxes only their edges; candidates

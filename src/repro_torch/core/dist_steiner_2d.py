@@ -160,7 +160,7 @@ def make_dist_steiner_2d(
     def body(src_l, dst_l, w, seeds):
         dev = src_l.device
         st, gids = _init_block(seeds, off, nf)
-        my_ghost = int((gids >= n).sum())
+        my_ghost = nf - min(max(n - off, 0), nf)  # this slice's vertices past n
         gsrc = src_l + r_idx * row_n  # global ids, for the tie-break
         if mode == "bucket":
             dlt = (np.float32(delta) if delta is not None

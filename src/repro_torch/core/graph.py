@@ -14,6 +14,8 @@ import weakref
 import numpy as np
 import torch
 
+from repro_torch.knobs import count_build
+
 
 @dataclasses.dataclass(frozen=True)
 class Graph:
@@ -195,6 +197,7 @@ def graph_cached(g, key: tuple, build):
     if hit is not None and hit[0]() is g:
         return hit[1]
     view = build()
+    count_build("view")
     while len(_ell_memo) >= _ELL_MEMO_CAP:
         _ell_memo.pop(next(iter(_ell_memo)))
 

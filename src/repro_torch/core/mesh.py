@@ -91,7 +91,11 @@ class Mesh:
         return int(np.prod([self.shape[a] for a in axes]))
 
 
+# the meshes of the world they were built on: a world destroyed and made
+# anew (by this module or by the caller) is another object, and its meshes
+# are built afresh
 _MESHES: Dict[Tuple, Mesh] = {}
+_MESHES_WORLD = [None]
 
 
 def _world_backend() -> str:
@@ -115,7 +119,6 @@ def device_mesh(dims: Sequence[int], axis_names: Sequence[str] = ("data", "model
                 f"mesh_shape {dims} needs {need} devices, only 1 available "
                 f"(initialise torch.distributed with a world of {need} ranks, "
                 f"for example with torchrun)")
-        _MESHES.clear()  # groups of a destroyed world
         dist.init_process_group(backend=_world_backend(), store=dist.HashStore(), rank=0,
                                 world_size=1, timeout=timedelta(seconds=600))
     have = dist.get_world_size()
@@ -124,7 +127,10 @@ def device_mesh(dims: Sequence[int], axis_names: Sequence[str] = ("data", "model
     if need != have:
         raise ValueError(f"mesh_shape {dims} needs {need} devices, the process group "
                          f"has {have} ranks")
-    key = (dims, tuple(axis_names), id(dist.group.WORLD))
+    if _MESHES_WORLD[0] is not dist.group.WORLD:
+        _MESHES.clear()  # groups of a destroyed world
+        _MESHES_WORLD[0] = dist.group.WORLD
+    key = (dims, tuple(axis_names))
     mesh = _MESHES.get(key)
     if mesh is None:
         mesh = _MESHES[key] = Mesh(dims, axis_names)

@@ -482,7 +482,9 @@ def unstack_leaf(t) -> list:
         return [DTensor.from_local(s, mesh, slice_pl, run_check=False) for s in block.unbind(0)]
     stack = _SplitStack(t, split)
     dummy = block.new_zeros(())
-    return [LayerShard(block[i - stack.first] if stack.holds(i) else dummy, stack, stack.holds(i))
+    # holds(): the host's test of which layers this rank keeps
+    return [LayerShard(block[i - stack.first] if stack.holds(i) else dummy,  # jitlint: ignore[TS02]
+                       stack, stack.holds(i))
             for i in range(t.shape[0])]
 
 
@@ -546,7 +548,7 @@ class _GatherLayer(torch.autograd.Function):
 
         st = piece.stack
         ctx.piece = piece
-        buf = (local.detach().clone() if piece.held
+        buf = (local.detach().clone() if piece.held  # jitlint: ignore[TS02] a host flag
                else local.new_zeros(st.local_shape))
         shape = st.shape[1:]
         part = DTensor.from_local(buf, st.mesh, st.held_pl, run_check=False, shape=shape,

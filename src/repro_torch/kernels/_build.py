@@ -29,6 +29,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from repro_torch.knobs import count_build
+
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR / "build"
 SOURCES = {
@@ -112,6 +114,7 @@ def library(family: str) -> ctypes.CDLL:
         _finish(family, _start(family))
         lib = ctypes.CDLL(str(_lib_path(family)))
         _libs[family] = lib
+        count_build("library")
     return lib
 
 

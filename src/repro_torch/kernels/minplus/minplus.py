@@ -142,7 +142,7 @@ def pack_records(dist: torch.Tensor, lab: torch.Tensor) -> torch.Tensor:
         rc = fn(dev.index if dev.index is not None else torch.cuda.current_device(),
                 _DTYPE_CODES[dist.dtype], dist.data_ptr(), lab.data_ptr(), rec.data_ptr(),
                 N, B, stride, torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
+        if rc != 0:  # jitlint: ignore[TS02] rc: the C entry point's int error code
             msg = lib.minplus_error_string(rc).decode()
             raise RuntimeError(f"minplus_pack_records launch failed: CUDA error {rc} ({msg})")
         pack_records.launches += N > 0
@@ -176,7 +176,7 @@ def _launch(name, nbr, wgt, inputs, dtype_codes, *extra, lanes=None):
         *dtype_codes, nbr.data_ptr(), wgt.data_ptr(), *(t.data_ptr() for t in inputs),
         m.data_ptr(), ml.data_ptr(), ms.data_ptr(), R, K, *extra, stream,
     )
-    if rc != 0:
+    if rc != 0:  # jitlint: ignore[TS02] rc: the C entry point's int error code
         msg = lib.minplus_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
     return m, ml, ms
@@ -364,19 +364,20 @@ def blocked_layout(
     run_off = torch.zeros(runs + 1 + 8, dtype=torch.int64, device=dev)
     torch.cumsum(counts, 0, out=run_off[1:runs + 1])
     run_off[runs + 1:] = E
-    # slice boundaries and the neighbor range, in one host sync
+    # slice boundaries and the neighbor range, in one host read
     ids = torch.unique_consecutive(run_slice)
     bounds = torch.searchsorted(run_slice, torch.cat([ids, ids[-1:] + 1]))
     lo_hi = torch.stack([v.min(), v.max()]) if E else torch.zeros(2, dtype=torch.int32,
                                                                    device=dev)
-    bounds, lo_hi = bounds.tolist(), lo_hi.tolist()
-    if E and not (0 <= lo_hi[0] and lo_hi[1] < n):
-        raise ValueError(f"a live slot's neighbor is outside [0, {n}): {lo_hi}")
+    host = torch.cat([bounds, lo_hi.to(bounds.dtype)]).tolist()
+    cuts, (lo, hi) = host[:-2], host[-2:]
+    if E and not (0 <= lo and hi < n):
+        raise ValueError(f"a live slot's neighbor is outside [0, {n}): {[lo, hi]}")
     blocked_layout.builds += 1
     return BlockedLayout(
         n=n, rows=R, width=K, src_block=src_block, slice_width=width,
         slot_nbr=slot_nbr, slot_wgt=slot_wgt, run_row=code, run_off=run_off,
-        slices=tuple((a, b - a) for a, b in zip(bounds[:-1], bounds[1:])),
+        slices=tuple((a, b - a) for a, b in zip(cuts[:-1], cuts[1:])),
     )
 
 
@@ -445,7 +446,7 @@ def minplus_blocked_call(
                     layout.slot_wgt.data_ptr(), layout.run_row.data_ptr(),
                     layout.run_off.data_ptr(), run0, nruns, tile, cap, rec.data_ptr(), *ptrs,
                     R, lanes, stride, stream)
-            if rc != 0:
+            if rc != 0:  # jitlint: ignore[TS02] rc: the C entry point's int error code
                 msg = lib.minplus_error_string(rc).decode()
                 raise RuntimeError(f"minplus_blocked launch failed: CUDA error {rc} ({msg})")
             launched += 1

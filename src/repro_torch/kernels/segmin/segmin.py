@@ -109,7 +109,7 @@ def segmin_bucketed_call(
         src.data_ptr(), m.data_ptr(), ml.data_ptr(), ms.data_ptr(), NB, EB, vb,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    if rc != 0:
+    if rc != 0:  # jitlint: ignore[TS02] rc: the C entry point's int error code
         msg = lib.segmin_error_string(rc).decode()
         raise RuntimeError(f"segmin_bucketed launch failed: CUDA error {rc} ({msg})")
     segmin_bucketed_call.launches += 1

@@ -104,6 +104,30 @@ _NOT_COUNTED = ("wait_tensor", "_wrap_tensor_autograd", "barrier", "monitored_ba
                 "check_for_nan")
 
 
+def collective_kind(ns: str, name: str) -> Optional[str]:
+    """The kind ("all-reduce", ...) of the collective op ``ns::name``;
+    None for an op of those namespaces that moves nothing
+    (``wait_tensor``, ``barrier``).  Raises for an unknown one, so that no
+    collective goes uncounted."""
+    if name in _NOT_COUNTED:
+        return None
+    table = _FUNCTIONAL if ns == "_c10d_functional" else _INPLACE
+    if name not in table:
+        raise NotImplementedError(f"collective {ns}.{name} is not counted")
+    return table[name]
+
+
+def collective_group(ns: str, args):
+    """The process group a collective op's ``args`` name: the functional
+    ops carry its name, the in-place ``c10d`` ops the group boxed as a
+    ScriptObject."""
+    if ns == "_c10d_functional":
+        from torch.distributed.distributed_c10d import _resolve_process_group
+
+        return _resolve_process_group([a for a in args if isinstance(a, str)][-1])
+    return dist.ProcessGroup.unbox(next(a for a in args if isinstance(a, torch.ScriptObject)))
+
+
 def link_of(ranks: Sequence[int]) -> str:
     """"nvlink" if every rank of the group sits in one node, else "ib"."""
     return "nvlink" if len({r // NODE_CARDS for r in ranks}) <= 1 else "ib"
@@ -166,7 +190,7 @@ class StepCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         ns, name = func.namespace, func._schema.name.split("::")[-1]
         if ns in ("_c10d_functional", "c10d"):
-            if name not in _NOT_COUNTED:
+            if collective_kind(ns, name) is not None:
                 self._collective(ns, name, args, out)
         elif ns != "prim" and not _is_view(func):
             self.bytes_hbm += sum(_nbytes(t) for t in _tensors((args, kwargs)))
@@ -174,10 +198,7 @@ class StepCounter(TorchDispatchMode):
         return out
 
     def _collective(self, ns, name, args, out):
-        table = _FUNCTIONAL if ns == "_c10d_functional" else _INPLACE
-        if name not in table:
-            raise NotImplementedError(f"collective {ns}.{name} is not counted")
-        kind = table[name]
+        kind = collective_kind(ns, name)
         result = out if ns == "_c10d_functional" else args[0]
         ranks = self._group_ranks(ns, args)
         nbytes = sum(_local(t).numel() * _local(t).element_size() for t in _tensors(result))
@@ -190,19 +211,10 @@ class StepCounter(TorchDispatchMode):
         g[kind] += wire
 
     def _group_ranks(self, ns, args) -> list:
-        if ns == "_c10d_functional":
-            from torch.distributed.distributed_c10d import _resolve_process_group
-
-            key = [a for a in args if isinstance(a, str)][-1]  # the group name
-            if key not in self._ranks:
-                self._ranks[key] = dist.get_process_group_ranks(_resolve_process_group(key))
-            return self._ranks[key]
-        # the in-place ops carry the group boxed as a ScriptObject
-        pg = dist.ProcessGroup.unbox(next(a for a in args if isinstance(a, torch.ScriptObject)))
+        pg = collective_group(ns, args)
         if pg.group_name not in self._ranks:
             self._ranks[pg.group_name] = dist.get_process_group_ranks(pg)
         return self._ranks[pg.group_name]
-
 
 
 @dataclasses.dataclass

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import GNNConfig, ShapeSpec
+from repro_torch.knobs import sync_free
 from repro_torch.distributed.sharding import (P, NamedSharding, ShapeDtypeStruct, constrain,
                                               entry_axes, full, is_dtensor, like,
                                               local_call, named_sharding, sanitize_spec)
@@ -608,6 +609,7 @@ def make_train_step(cfg: GNNConfig, shape: ShapeSpec, opt_cfg, dp_axes=()):
     for the given cell: value and gradients, then the port's AdamW, the
     parameters and moments updated in place."""
 
+    @sync_free
     def train_step(params, opt_state, batch):
         loss, grads = loss_and_grads(cfg, shape, params, batch, dp_axes)
         params, opt_state = adamw_update(params, grads, opt_state, opt_cfg)

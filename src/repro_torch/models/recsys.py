@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import RecsysConfig, ShapeSpec
+from repro_torch.knobs import sync_free
 from repro_torch.distributed.sharding import (P, NamedSharding, ShapeDtypeStruct, axes_index,
                                               constrain, entry_axes, full, is_dtensor, like,
                                               local_call, named_sharding, sanitize_spec,
@@ -77,7 +78,7 @@ def init_params(cfg: RecsysConfig, generator: torch.Generator, *, device=None):
 def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` (any shape of ids); raises ``IndexError`` on an id
     outside ``[0, len(table))``."""
-    if ids.numel() and bool(((ids < 0) | (ids >= table.shape[0])).any()):
+    if ids.numel() and ((ids < 0) | (ids >= table.shape[0])).any():
         bad = ids[(ids < 0) | (ids >= table.shape[0])][0]
         raise IndexError(f"item id {int(bad)} outside [0, {table.shape[0]})")
     return table.index_select(0, ids.reshape(-1)).reshape(*ids.shape, table.shape[-1])
@@ -247,6 +248,7 @@ def make_step(cfg: RecsysConfig, shape: ShapeSpec, opt_cfg=None):
     ``recsys_retrieval``."""
     if shape.kind == "recsys_train":
 
+        @sync_free
         def step(params, opt_state, batch):
             loss, grads = loss_and_grads(cfg, params, batch)
             params, opt_state = adamw_update(params, grads, opt_state, opt_cfg)
@@ -257,6 +259,7 @@ def make_step(cfg: RecsysConfig, shape: ShapeSpec, opt_cfg=None):
     if score is None:
         raise ValueError(shape.kind)
 
+    @sync_free
     @torch.no_grad()
     def serve(params, batch):
         return score(cfg, params, batch)

@@ -55,6 +55,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig, ShapeSpec
+from repro_torch.knobs import sync_free
 from repro_torch.distributed.sharding import (P, LayerShard, NamedSharding, ShapeDtypeStruct,
                                               constrain, full, gather_layer, is_dtensor,
                                               is_split, leaf_tensor, local_call, mesh_shape,
@@ -667,6 +668,7 @@ def make_train_step(cfg: LMConfig, opt_cfg: OptConfig, dp_axes=("data",),
         return loss_and_grads(cfg, params, tok, kv_chunk=kv_chunk, stacked=False,
                               dp_axes=dp_axes, seq_shard=seq_shard)
 
+    @sync_free
     def train_step(params, opt_state, tokens):
         if grad_accum == 1:
             loss, grads = grads_of(params, tokens)
@@ -758,6 +760,7 @@ def make_decode_step(cfg: LMConfig, dp_axes=("data",)):
     in place by the ranks that hold its position.  The logits come out
     P(dp, "model")."""
 
+    @sync_free
     @torch.no_grad()
     def decode_step(params, caches, tokens, cache_len):
         sharded = is_dtensor(tokens)
@@ -1024,6 +1027,7 @@ def make_prefill_step(cfg: LMConfig, dp_axes=("data",), kv_chunk: int = 1024,
         sp = sanitize_spec(lg.device_mesh, lg.shape, (dp_axes, None, "model"))
         return local_call(lambda t: t[:, 0], (lg,), (sp,), P(sp[0], sp[2])), sp[2]
 
+    @sync_free
     @torch.no_grad()
     def prefill_step(params, tokens):
         outs = [one(params, t) for t in microbatches(tokens, batch_chunks)]

@@ -31,6 +31,7 @@ import torch
 from repro_torch.distributed.sharding import (P, NamedSharding, ShapeDtypeStruct, axes_index,
                                               axis_names, contiguous_stride, is_dtensor,
                                               mesh_shape, shift_placements, stack_slices)
+from repro_torch.knobs import sync_free
 from repro_torch.tree import tree_leaves, tree_map
 
 QBLOCK = 128
@@ -133,6 +134,7 @@ def _local(t, want: tuple, what: str):
     return t.to_local()
 
 
+@sync_free
 def adamw_update(params: Any, grads: Any, state: Any, cfg: OptConfig):
     """One AdamW step → (params, state), both updated in place.
 

@@ -12,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+from repro_torch import knobs
+
 BACKENDS: Tuple[str, ...] = ("single", "mesh1d", "mesh2d", "batch")
 MODES: Tuple[str, ...] = ("dense", "bucket", "frontier", "pallas")
 MST_ALGOS: Tuple[str, ...] = ("prim", "boruvka")
@@ -182,3 +184,7 @@ class SolverConfig:
     def replace(self, **kw) -> "SolverConfig":
         """Functional update (re-validates)."""
         return dataclasses.replace(self, **kw)
+
+
+# every field is a view knob or a solve knob: a new one fails the import
+knobs.validate_config_coverage(f.name for f in dataclasses.fields(SolverConfig))

@@ -1066,3 +1066,79 @@ def test_sharded_serving_on_one_nccl_rank_matches_plain(cuda, case):
 
     mesh = make_test_mesh((1, 1), ("data", "model"), device="cuda")
     check_serve(port_serve(case, mesh, ("data",)), port_serve(case, device=cuda), case)
+
+
+# ----------------------------------------------------------------------------
+# the runtime sanitizer on the card (repro_torch.analysis.sanitize)
+# ----------------------------------------------------------------------------
+
+
+def _sanitized_solves(dev, cfg, seeds, scale=12):
+    """A warm solve under ``sanitizer()`` beside the unguarded one, on
+    ``dev``: (unguarded, guarded, report)."""
+    from repro_torch.analysis.sanitize import sanitizer
+
+    src, dst, w, n = rmat_edges(scale, 8, max_weight=100, seed=0)
+    h = SteinerSolver(cfg, device=dev).prepare(from_edges(src, dst, w, n, pad_to=8, device=dev))
+    plain = h.solve(seeds)
+    with sanitizer(device=dev) as rep:
+        out = h.solve(seeds)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+    return plain, out, rep
+
+
+@pytest.mark.parametrize("backend,frontier", [("single", False), ("single", True),
+                                              ("batch", False)])
+def test_sanitized_pallas_solve_on_card_counts_like_cpu(cuda, backend, frontier):
+    """Guarded = unguarded bit for bit, no rebuild, the dispatch mode's
+    count equal to the function mode's on the card, and the card's host
+    reads equal the CPU's, kind by kind."""
+    src, dst, w, n = rmat_edges(12, 8, max_weight=100, seed=0)
+    seeds = select_seeds(n, src, dst, 32, strategy="uniform", seed=1000)
+    if backend == "batch":
+        seeds = np.stack([seeds, select_seeds(n, src, dst, 32, strategy="uniform", seed=7)])
+    cfg = SolverConfig(backend=backend, mode="pallas", pallas_frontier=frontier,
+                       frontier_size=256)
+    plain, out, rep = _sanitized_solves(cuda, cfg, seeds)
+    for part in ("state", "tree"):
+        a, b = getattr(plain.raw, part), getattr(out.raw, part)
+        for f in a.__dataclass_fields__:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert rep.rebuilds == 0 and rep.sync_warnings is not None
+    assert rep.dispatch_reads == rep.host_reads
+    _, cpu_out, cpu_rep = _sanitized_solves("cpu", cfg, seeds)
+    assert cpu_out.telemetry.iterations == out.telemetry.iterations
+    assert (cpu_rep.host_reads, cpu_rep.reads_by_kind) == (rep.host_reads, rep.reads_by_kind)
+
+
+def test_h2d_guard_counts_copies_onto_the_card(cuda):
+    from repro_torch.analysis.sanitize import TraceSafetyError, h2d_guard
+
+    host = torch.arange(4)
+    with h2d_guard() as rep:
+        on = host.to(cuda)
+        torch.empty(4, dtype=host.dtype, device=cuda).copy_(host)
+        on + 1  # on the card already: no copy
+    assert rep.h2d == 2
+    with pytest.raises(TraceSafetyError, match="host-to-device"):
+        with h2d_guard(allow=0):
+            host.to(cuda)
+
+
+def test_host_reads_on_card_count_like_cpu(cuda):
+    from repro_torch.analysis.sanitize import host_read_guard
+
+    def reads(x):
+        with host_read_guard() as rep:
+            x.sum().item()
+            x.tolist()
+            x.cpu().numpy()
+            bool(x[0] > 0)
+            x[x > 2]
+            torch.nonzero(x)
+        return rep
+
+    card, host = reads(torch.arange(6.0, device=cuda)), reads(torch.arange(6.0))
+    assert card.reads_by_kind == host.reads_by_kind and card.host_reads == 6
+    assert card.dispatch_reads == card.host_reads > host.dispatch_reads
