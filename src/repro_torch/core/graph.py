@@ -91,6 +91,26 @@ def from_edges(
     )
 
 
+def to_networkx(g: Graph):
+    """Materializes an undirected networkx graph (tests / small graphs only):
+    padding edges dropped, the min weight kept on parallel edges."""
+    import networkx as nx
+
+    src = g.src.cpu().numpy()
+    dst = g.dst.cpu().numpy()
+    w = g.w.cpu().numpy()
+    gx = nx.Graph()
+    gx.add_nodes_from(range(g.n))
+    real = np.isfinite(w)
+    for u, v, d in zip(src[real], dst[real], w[real]):
+        uu, vv = int(u), int(v)
+        if gx.has_edge(uu, vv):
+            gx[uu][vv]["weight"] = min(gx[uu][vv]["weight"], float(d))
+        else:
+            gx.add_edge(uu, vv, weight=float(d))
+    return gx
+
+
 def segment_min(values: torch.Tensor, index: torch.Tensor, n: int, fill) -> torch.Tensor:
     """``jax.ops.segment_min``: the min of ``values`` per ``index`` segment;
     empty segments hold ``fill`` (the identity: +inf or INT32_MAX)."""

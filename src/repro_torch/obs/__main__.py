@@ -1,4 +1,4 @@
-"""``python -m repro_torch.obs``: validate a trace, report a flight recording.
+"""``python -m repro_torch.obs``: validate a trace, gate the perf, report a flight.
 
 ``validate`` checks that a Chrome trace is schema-clean (monotonic ``ts``,
 complete X events or paired B/E, known phases), that a Prometheus dump
@@ -7,6 +7,17 @@ parses (``--metrics``), and that named spans are present
 
     python -m repro_torch.obs validate trace.json --metrics metrics.txt \\
         --require-span ingest:build_store
+
+``bench`` is the continuous perf-regression gate: it runs the pinned
+small-scale configurations of :mod:`repro_torch.obs.regress` on ``--device``
+(``cuda`` by default; it raises where there is no card), appends env-stamped
+rows to ``BENCH_HISTORY_TORCH.jsonl`` and exits 1 when a metric regresses
+past its noise-aware threshold against ``BENCH_BASELINES_TORCH.json``
+(``--update-baseline`` rewrites the baseline instead of gating; a missing
+baseline warns and passes unless ``--strict``)::
+
+    python -m repro_torch.obs bench --quick            # on the card
+    python -m repro_torch.obs bench --quick --device cpu --only steiner
 
 ``report`` renders a dumped flight recording
 (:func:`repro_torch.obs.flight.dump_flight`) as a text or markdown
@@ -21,7 +32,7 @@ import argparse
 import json
 import sys
 
-from repro_torch.obs import flight
+from repro_torch.obs import flight, regress
 from repro_torch.obs.metrics import parse_prometheus
 from repro_torch.obs.trace import validate_chrome_trace
 
@@ -55,6 +66,53 @@ def _cmd_validate(args: argparse.Namespace) -> int:
             print(f"missing required spans: {missing}", file=sys.stderr)
             return 1
         print(f"required spans present: {args.require_span}")
+    return 0
+
+
+def _cmd_bench(args: argparse.Namespace) -> int:
+    factor = regress.injection_factor()
+    if factor != 1.0:
+        print(f"NOTE: {regress.INJECT_ENV}={factor} — injected slowdown")
+    k = args.k if args.k is not None else (3 if args.quick else 5)
+    try:
+        results = regress.run_bench(args.only, k=k, quick=args.quick, device=args.device)
+    except KeyError as e:
+        print(f"bench failed: {e}", file=sys.stderr)
+        return 1
+    rows = regress.append_history(
+        args.history, results, quick=args.quick, k=k, injected=factor,
+        device=args.device,
+    )
+    print(f"appended {rows} rows to {args.history}")
+
+    if args.update_baseline:
+        regress.write_baseline(args.baseline, results, device=args.device)
+        print(f"baseline updated: {args.baseline}")
+        return 0
+
+    try:
+        baselines = regress.load_baseline(args.baseline)
+    except FileNotFoundError:
+        print(
+            f"WARNING: no baseline file at {args.baseline} — "
+            "run with --update-baseline to create one",
+            file=sys.stderr,
+        )
+        return 1 if args.strict else 0
+    verdicts = regress.compare(
+        results, baselines, z=args.z, max_ratio=args.max_ratio
+    )
+    print(regress.render_verdicts(verdicts))
+    bad = [v.metric for v in verdicts if v.status == "regress"]
+    missing = [v.metric for v in verdicts if v.status == "missing"]
+    if missing:
+        print(f"WARNING: no baseline for: {missing}", file=sys.stderr)
+        if args.strict:
+            return 1
+    if bad:
+        print(f"PERF REGRESSION: {bad}", file=sys.stderr)
+        return 1
+    print("perf gate: ok")
     return 0
 
 
@@ -92,6 +150,37 @@ def main(argv=None) -> int:
         help="span name that must appear in the trace (repeatable)",
     )
     pv.set_defaults(fn=_cmd_validate)
+
+    pb = sub.add_parser("bench", help="run pinned benches + perf-regression gate")
+    pb.add_argument(
+        "--quick", action="store_true",
+        help="CI-sized configurations (smaller k and workloads)",
+    )
+    pb.add_argument("--k", type=int, default=None, help="samples per metric")
+    pb.add_argument(
+        "--only", action="append", default=None,
+        help="bench group to run: steiner|serve|ingest (repeatable)",
+    )
+    pb.add_argument("--history", default=regress.DEFAULT_HISTORY)
+    pb.add_argument("--baseline", default=regress.DEFAULT_BASELINE)
+    pb.add_argument(
+        "--update-baseline", action="store_true",
+        help="write measurements as the new baseline instead of gating",
+    )
+    pb.add_argument("--z", type=float, default=regress.DEFAULT_Z, help="MAD multiplier")
+    pb.add_argument(
+        "--max-ratio", type=float, default=None,
+        help="override every metric's policy ratio",
+    )
+    pb.add_argument(
+        "--strict", action="store_true",
+        help="missing baselines fail instead of warn",
+    )
+    pb.add_argument(
+        "--device", default="cuda",
+        help="where the workloads run (default cuda; cpu runs the plain path)",
+    )
+    pb.set_defaults(fn=_cmd_bench)
 
     pr = sub.add_parser("report", help="render a per-rank flight recording")
     pr.add_argument("flight", help="flight JSON (flight.dump_flight)")

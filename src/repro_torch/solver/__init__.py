@@ -14,6 +14,7 @@ from repro_torch.solver.config import BACKENDS, MODES, SolverConfig
 from repro_torch.solver.registry import (
     SolveOutput,
     SolveTelemetry,
+    available_backends,
     get_backend,
     register_backend,
 )
@@ -26,6 +27,7 @@ __all__ = [
     "SolveTelemetry",
     "SolverConfig",
     "SteinerSolver",
+    "available_backends",
     "get_backend",
     "register_backend",
 ]

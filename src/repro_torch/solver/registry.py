@@ -9,7 +9,7 @@ A backend is a singleton object wrapping one execution strategy, with
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -135,3 +135,7 @@ def get_backend(name: str):
         raise KeyError(
             f"unknown backend {name!r}; registered: {sorted(_REGISTRY)}"
         ) from None
+
+
+def available_backends() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))

@@ -1142,3 +1142,48 @@ def test_host_reads_on_card_count_like_cpu(cuda):
     card, host = reads(torch.arange(6.0, device=cuda)), reads(torch.arange(6.0))
     assert card.reads_by_kind == host.reads_by_kind and card.host_reads == 6
     assert card.dispatch_reads == card.host_reads > host.dispatch_reads
+
+
+# ---- the perf-regression gate (repro_torch.obs.regress) on the card
+
+
+def test_pinned_pallas_solve_on_card_equals_cpu(cuda):
+    """The gate's pinned pallas solve (RMAT scale 8, 8 seeds, ell_width=16)
+    on the card is the CPU's bit for bit, one kernel launch a round."""
+    from repro_torch.obs import regress
+
+    out, launched = {}, {}
+    for d in (cuda, "cpu"):
+        g, n = regress._rmat_graph(regress.STEINER_SCALE, device=d)
+        h = SteinerSolver(regress.steiner_config("pallas"), device=d).prepare(g)
+        n0 = tmp.minplus_call.launches
+        out[str(d)] = h.solve(regress.pinned_seeds(n))
+        launched[str(d)] = tmp.minplus_call.launches - n0
+    _same_solve(out[str(cuda)], out["cpu"])
+    assert launched == {str(cuda): out["cpu"].telemetry.iterations, "cpu": 0}
+
+
+def test_env_stamp_on_card_names_the_device(cuda):
+    import shutil
+
+    from repro_torch.obs import regress
+
+    stamp = regress.env_stamp()
+    assert stamp["device"] == torch.cuda.get_device_name(0)
+    assert stamp["torch"] == torch.__version__ and stamp["cuda"] == torch.version.cuda
+    assert "jax" not in stamp
+    if shutil.which("nvidia-smi"):
+        assert stamp["power_limit"].endswith(" W")
+    assert regress.env_stamp("cpu")["device"] == "cpu"
+
+
+def test_steiner_bench_group_on_card(cuda):
+    """run_bench's steiner group on the card: its four metrics, and the
+    deterministic message count equal to the CPU's."""
+    from repro_torch.obs import regress
+
+    res = {r.metric: r for r in regress.run_bench(["steiner"], k=1, quick=True)}
+    assert sorted(res) == sorted(m for m in regress.METRIC_POLICY if m.startswith("steiner"))
+    for m in ("bucket", "frontier", "pallas"):
+        assert res[f"steiner_warm_ms_{m}"].value > 0
+    assert res["steiner_frontier_messages"].value == regress.pinned_frontier_messages("cpu")
