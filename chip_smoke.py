@@ -5,6 +5,7 @@
     python3 chip_smoke.py --scale 18 # a shorter rehearsal of phases 6 to 9
     python3 chip_smoke.py --scale 18 --only-models  # phases 1, 6 and 12 alone
     python3 chip_smoke.py --scale 18 --only-models --trainer  # and phase 11 with 13
+    python3 chip_smoke.py --only-kg      # phases 1, 2, 6 and 10c alone
     python3 chip_smoke.py --only-dryrun  # phase 14 alone
     python3 chip_smoke.py --scale 18 --only-analysis  # phases 1 and 15 alone
     python3 chip_smoke.py --only-gate    # phases 1 and 16 alone
@@ -43,9 +44,9 @@ result):
    with src_block=4096, a layout built each round);
 5. RMAT scale 16, serving: one Zipf query stream through
    SteinerServer(g, ServeConfig(mode="pallas", buckets=(8, 16, 32),
-   max_batch=8)) and its first 12 queries through SteinerServer(g,
+   max_batch=8)), 12 queries, and its first 6 through SteinerServer(g,
    ServeConfig()) (mode "bucket") on the card and on the CPU, with identical results and
-   non-latency counters; then one (8, 16) seed batch through the batch
+   non-latency counters; then one (4, 16) seed batch through the batch
    backend with src_block=4096, in modes "dense" and "bucket", and with
    pallas_frontier, card vs CPU bit for bit (blocked lane launches =
    rounds x lane groups x slices; the top-K batch one launch a round);
@@ -86,7 +87,8 @@ result):
    seeds through "dense", "bucket", "frontier" (K = 8192) and "pallas"
    with pallas_frontier (K = 131072, see TOPK_KERNEL_K; resident and
    src_block=4096), a cold and a
-   warm solve each at phase 6's fixpoint bit for bit; rounds, counters,
+   warm solve each (the top-K kernel schedule one solve) at phase 6's
+   fixpoint bit for bit; rounds, counters,
    seconds and the Voronoi stage; launches = rounds on the top-K kernel
    path (a layout built each round with src_block); one (8192, 32) tile's
    kernel times beside its bound and its layout build; a profiler pass
@@ -95,12 +97,12 @@ result):
    from phase 6's host edges into a temporary directory (removed at the
    end; ~1.3 GB), open_store with CRC verification, prepare with
    ell_pad_rows=65536 (28,045 spare rows) and a warm solve bit-identical
-   to phase 6's; a store-backed server over phase 7's stream, 50 queries,
+   to phase 6's; a store-backed server over phase 7's stream, 25 queries,
    one apply_deltas of 100 records (60 adds, 20 deletes, 20 reweights),
-   50 more, every distinct post-bump answer equal to a cold single solve
-   of the mutated store; an IncrementalSession (K = 8192) through three
-   epochs of 100 records, the last bit-identical to a cold frontier solve;
-   then compact of the store (4 segments, 400 records): the compacted CSR
+   25 more, every distinct post-bump answer equal to a cold single solve
+   of the mutated store; an IncrementalSession (K = 8192) through one
+   epoch of 100 records, bit-identical to a cold frontier solve; then
+   compact of the store (2 segments, 200 records): the compacted CSR
    equal to the effective CSR taken just before, verify_store, and prepare
    of the compacted store (ell_pad_rows=65536) with a warm pallas solve
    bit-identical to the overlay store's; Borůvka beside Prim on phase 6's
@@ -112,9 +114,10 @@ result):
    "dense", the mesh_frontier preset (K = 8192, ell_width=32), clw_10k's
    knobs at S = 1024 (pair_chunks=8, lab_i16), Borůvka, per-rank telemetry
    (64 rounds; its flight report checked) and mesh2d bucket, each prepared
-   from phase 6's graph with a cold and a warm solve whose state and tree
-   equal phase 6's single solve (Borůvka's: the single Borůvka tree of that
-   state); rounds, counters, prepare, cold and warm seconds; a profiler pass
+   from phase 6's graph with a cold solve (and lvj_1k a warm one) whose
+   state and tree equal phase 6's single solve (Borůvka's: the single
+   Borůvka tree of that state); rounds, counters, prepare, cold and warm
+   seconds; a profiler pass
    of the bucket solve with NCCL's share of device time; the scale-10 fixed
    answers of the mesh rows (547.0; 17 / 2550 / 257061 bucket, 10 / 2248 /
    31047 frontier); scale 16 card against CPU (gloo) bit for bit in every
@@ -132,7 +135,18 @@ result):
    off and on in turns (the overhead); phase 7's eight distinct keys
    through a traced server (the serve spans; phase 7's answers); the
    lvj_1k mesh preset with per-rank telemetry (its rank track; phase 6's
-   state and tree, phase 10's counters); then each kernel timed against
+   state and tree, phase 10's counters);
+10c. the paper's knowledge-graph workflow
+   (examples/torch_steiner_knowledge_graph.py: mesh1d, bucket,
+   local_steps=2, Prim) at full width on one NCCL rank: prepared on phase
+   6's graph (phase 10's partition reused; knobs.build_count says so), the
+   example's queries over phase 6's host edges (|S| = 8, 64 and 256,
+   drawn uniformly where the example draws 64 and 256 by BFS level, see
+   KG_QUERIES; the |S| = 64 repeat with nothing rebuilt), then phase
+   6's 1,024 seeds cold and warm and under local_steps=1; each answer's
+   state and tree = a single-device pallas solve of its seeds on phase 6's
+   handle (resident kernel launches = rounds), no kernel launched by the
+   mesh path; rounds, relaxations, messages, seconds and peak GB; then each kernel timed against
    its plain version (the lane kernel at the eight-key batch's state, at
    B = 1 against the single kernel, and at B = 1, 2, 4, 8 on the first
    lanes of that state; the record packing alone; the blocked kernel at
@@ -209,7 +223,8 @@ result):
    (FlopCounterMode around the step) and the bytes of the parameters and
    optimizer state equal exactly, the predicted peak printed beside
    max_memory_allocated (not gated); 14c examples/torch_quickstart.py,
-   torch_serve_queries.py and torch_build_store.py on the card, each
+   torch_serve_queries.py, torch_build_store.py and
+   torch_steiner_knowledge_graph.py (one NCCL rank) on the card, each
    asserting its own checks;
 15. the trace-safety analyzer and the runtime sanitizer
    (src/repro_torch/analysis/, knobs.py), once phase 14's processes are
@@ -845,7 +860,7 @@ def phase4_card_vs_cpu(dev, counters):
 def phase5_server_card_vs_cpu(dev):
     """RMAT scale 16: the same query stream through the server on the card
     and on the CPU, in mode "pallas" and with the default ServeConfig()
-    (mode "bucket"); then one (8, 16) batch through the batch backend with
+    (mode "bucket"); then one (4, 16) batch through the batch backend with
     src_block=4096 and in modes "dense", "bucket" and "pallas" with
     pallas_frontier, card vs CPU bit for bit.  Returns the launches of each
     kernel on the card: the lane kernels' on the pallas stream and the
@@ -864,12 +879,14 @@ def phase5_server_card_vs_cpu(dev):
     buckets = (8, 16, 32)
     rng = np.random.default_rng(0)
     pool = build_query_pool(n, rng, 10, buckets)
-    queries = [pool[i] for i in zipf_stream(rng, 10, 24, 1.1)]
+    # 12 queries, the default server (mode "bucket", lane by lane on the CPU)
+    # the first 6, and 4-lane batches below (cut from 24, 12 and 8 to keep
+    # the script in its time; PERF.md §4): the CPU's side takes most of the
+    # phase
+    queries = [pool[i] for i in zipf_stream(rng, 10, 12, 1.1)]
     launches = {}
-    # the default server (mode "bucket") serves the first 12 queries: on the
-    # CPU it solves lane by lane, ~42 s for all 24
     for cfg, stream in ((ServeConfig(mode="pallas", buckets=buckets, max_batch=8), queries),
-                        (ServeConfig(), queries[:12])):
+                        (ServeConfig(), queries[:6])):
         runs = {}
         for d in (dev, "cpu"):
             srv = SteinerServer(graphs[str(d)], cfg, device=d)
@@ -896,7 +913,7 @@ def phase5_server_card_vs_cpu(dev):
             f"identical; batches {sg['batches_per_bucket']}, hits {sg['cache_hits']}; lane "
             f"launches {got[0]}; card {tg:.3f} s, cpu {tc:.3f} s")
 
-    rows = np.stack([pad_seed_set(sorted(set(q))[:16], 16) for q in pool[:8]])
+    rows = np.stack([pad_seed_set(sorted(set(q))[:16], 16) for q in pool[:4]])
     for kw in (dict(mode="pallas", src_block=4096), dict(mode="dense"), dict(mode="bucket"),
                dict(mode="pallas", pallas_frontier=True)):
         bcfg = SolverConfig(backend="batch", **kw)
@@ -938,7 +955,7 @@ def phase5_server_card_vs_cpu(dev):
                     tb.iterations, tb.relaxations, tb.messages)
                 and (ta.per_round == tb.per_round).all()):
             raise AssertionError(f"batch {kw} solve output: card and CPU differ")
-        log(f"phase 5: scale 16 batch (8, 16) {kw}: bit-identical; lane rounds "
+        log(f"phase 5: scale 16 batch {rows.shape} {kw}: bit-identical; lane rounds "
             f"{a.raw.stats.iterations.tolist()}; launches (resident, lanes, blocked, blocked "
             f"lanes) {got}; card {secs[str(dev)]:.3f} s, cpu {secs['cpu']:.3f} s")
     return launches
@@ -1066,7 +1083,9 @@ def phase5b_store_card_vs_cpu(dev):
         buckets = (8, 16, 32)
         rng = np.random.default_rng(0)
         pool = build_query_pool(n, rng, 6, buckets)
-        queries = [pool[i] for i in zipf_stream(rng, 6, 12, 1.1)]
+        # 6 queries a pass (cut from 12 to keep the script in its time;
+        # PERF.md §4): the CPU's side takes most of the phase
+        queries = [pool[i] for i in zipf_stream(rng, 6, 6, 1.1)]
         epochs = [delta_records(np.random.default_rng(10 + e), n, src, dst, 30, 10, 10)
                   for e in range(2)]
         for mode in ("pallas", "bucket"):
@@ -1476,7 +1495,8 @@ def phase9_schedules_full_width(dev, h, single_in, tally, topk_k=TOPK_KERNEL_K):
     """Phase 6's graph and seeds through every other single-device schedule
     (FULL_WIDTH_RUNS; the frontier at K = FULL_WIDTH_K, the top-K kernel
     schedule at K = ``topk_k``): a cold and a
-    warm solve each, both at phase 6's fixpoint bit for bit (state, MST,
+    warm solve each (the top-K kernel schedule, 10-20 s a solve, one solve),
+    all at phase 6's fixpoint bit for bit (state, MST,
     tree); rounds, counters, seconds and the Voronoi stage (the warm solve
     less its tail, timed alone on the same state); kernel launches against
     the rounds; a (K, 32) tile's times; a profiler pass over the first
@@ -1504,7 +1524,11 @@ def phase9_schedules_full_width(dev, h, single_in, tally, topk_k=TOPK_KERNEL_K):
         kmod.minplus_call.launches = kmod.minplus_blocked_call.launches = 0
         b0 = kmod.blocked_layout.builds
         cold, cold_s = timed(hs.solve, seeds)
-        warm, warm_s = timed(hs.solve, seeds)
+        # the top-K kernel schedule's solves take 10-20 s each here: one solve
+        # (cut from a cold and a warm one to keep the script in its time;
+        # PERF.md §4)
+        solves = 1 if name == "pallas_frontier" else 2
+        warm, warm_s = timed(hs.solve, seeds) if solves == 2 else (cold, cold_s)
         got = (kmod.minplus_call.launches, kmod.minplus_blocked_call.launches)
         builds = kmod.blocked_layout.builds - b0
         what = f"{name} src_block={sb}"
@@ -1520,32 +1544,35 @@ def phase9_schedules_full_width(dev, h, single_in, tally, topk_k=TOPK_KERNEL_K):
             raise AssertionError(f"{what}: {rounds} rounds reach the cap {max_iters}")
         if name == "pallas_frontier" and sb is not None:
             most = math.ceil(g.n / kmod.slice_width(g.n, sb, kmod.L2_BUDGET))
-            ok = got[0] == 0 and builds == 2 * rounds and 2 * rounds <= got[1] <= 2 * rounds * most
+            ok = (got[0] == 0 and builds == solves * rounds
+                  and solves * rounds <= got[1] <= solves * rounds * most)
             launches[f"minplus_blocked_call ({name})"] = got[1]
         elif name == "pallas_frontier":
-            ok = got == (2 * rounds, 0)
+            ok = got == (solves * rounds, 0)
             launches[f"minplus_call ({name})"] = got[0]
         else:
             ok = got == (0, 0)
         if not ok:
             raise AssertionError(f"{what}: launches (resident, blocked) {got}, {builds} layout "
-                                 f"builds for 2 x {rounds} rounds")
+                                 f"builds for {solves} x {rounds} rounds")
         _, tail_s = timed(smod.finish_pipeline, g, warm.raw.state, warm.raw.stats, S)
         if name == "pallas_frontier":
-            # the warm solve less its tail (the stage is ~100x the tail here;
-            # a third run would double the phase)
-            voronoi_s, how = warm_s - tail_s, "the warm solve less its tail"
+            # the solve less its tail (the stage is ~100x the tail here;
+            # a second run would double the phase)
+            voronoi_s, how = cold_s - tail_s, "the solve less its tail"
         else:
             _, voronoi_s = timed(stage, name, cfg, hs, seeds_dev(seeds, dev))
             how = "timed alone"
         key = name if sb is None else f"{name} src_block={sb}"
         rec[key] = dict(K=K, max_iters=max_iters, prepare_s=prep_s, cold_solve_s=cold_s,
-                        warm_solve_s=warm_s, tail_s=tail_s, voronoi_s=voronoi_s,
-                        voronoi_how=how, iterations=rounds, relaxations=t.relaxations,
-                        messages=t.messages, launches=got, layout_builds=builds)
+                        warm_solve_s=warm_s if solves == 2 else None, tail_s=tail_s,
+                        voronoi_s=voronoi_s, voronoi_how=how, iterations=rounds,
+                        relaxations=t.relaxations, messages=t.messages, launches=got,
+                        layout_builds=builds)
         log(f"phase 9: {what} (K={K}, max_iters={max_iters}): phase 6's fixpoint "
             f"bit for bit; rounds={rounds} relax={t.relaxations} msgs={t.messages}; cold "
-            f"{cold_s:.3f} s, warm {warm_s:.3f} s; tail {tail_s:.3f} s; Voronoi stage "
+            f"{cold_s:.3f} s, " + (f"warm {warm_s:.3f} s" if solves == 2 else "no warm solve")
+            + f"; tail {tail_s:.3f} s; Voronoi stage "
             f"{voronoi_s:.3f} s ({how}; {voronoi_s / rounds * 1e3:.3f} ms a round); launches "
             f"(resident, blocked) {got}, layout builds {builds}")
         del hs, cold, warm
@@ -1582,7 +1609,10 @@ def mst_weight(W, parent):
     return float(W[kids, parent[kids]].astype(np.float64).sum())
 
 
-SERVED = 50  # queries of phase 7's stream served before and after the deltas
+SERVED = 25  # queries of phase 7's stream served before and after the deltas
+# epochs of 100 records through phase 9b's IncrementalSession (cut from 3 to
+# keep the script in its time; PERF.md §4)
+SESSION_EPOCHS = 1
 
 
 def span_sums(tracer):
@@ -1597,8 +1627,8 @@ def span_sums(tracer):
 
 
 def compact_full_width(dev, store, path, seeds, pad_rows):
-    """Phase 9b's compaction: the store with its four segments (the
-    server's epoch and the session's three) folded by ``compact``; the
+    """Phase 9b's compaction: the store with its segments (the server's
+    epoch and the session's SESSION_EPOCHS) folded by ``compact``; the
     compacted CSR equal to the effective CSR taken just before, bit for bit;
     ``verify_store``; and ``prepare`` of the compacted store with the same
     ``ell_pad_rows`` plus a warm pallas solve, bit-identical to the overlay
@@ -1623,7 +1653,8 @@ def compact_full_width(dev, store, path, seeds, pad_rows):
     stats, rec["compact_s"] = timed(compact, store)
     rec["stats"] = {k: getattr(stats, k) for k in (
         "epoch", "segments_folded", "records_folded", "m_before", "m_after", "seconds")}
-    if not (stats.segments_folded == segments == 4 and stats.records_folded == 400
+    if not (stats.segments_folded == segments == 1 + SESSION_EPOCHS
+            and stats.records_folded == 100 * (1 + SESSION_EPOCHS)
             and stats.m_after == eff[1].shape[0] == store.m and stats.seconds > 0
             and store.overlay is None and stats.epoch == store.epoch):
         raise AssertionError(f"compact: {rec['stats']} ({segments} segments, effective m "
@@ -1657,8 +1688,8 @@ def phase9b_store_full_width(dev, h, single_in, g_host):
     first SERVED queries of phase 7's stream, one apply_deltas of 100
     records (60 adds, 20 deletes, 20 reweights), the next SERVED queries,
     each distinct post-bump answer equal to a cold single solve of the
-    mutated store; an IncrementalSession (K = 8192) through three such epochs, the
-    last bit-identical to a cold frontier solve; Borůvka beside Prim on
+    mutated store; an IncrementalSession (K = 8192) through SESSION_EPOCHS
+    such epochs, the last bit-identical to a cold frontier solve; Borůvka beside Prim on
     phase 6's pair table.  Returns the record and the kernels' launches."""
     import dataclasses
     import tempfile
@@ -1738,8 +1769,8 @@ def phase9b_store_full_width(dev, h, single_in, g_host):
 
         srv._warm_resolve = timed_warm
         kmod.minplus_call.lane_launches = 0
-        # the first 50 queries of the stream, then the next 50 (cut from 100
-        # and 100 to keep the phase near 180 s; PERF.md §4)
+        # the first SERVED queries of the stream, then the next SERVED (cut
+        # from 100 and 100 to keep the script in its time; PERF.md §4)
         _, rec["served_before_s"] = serve_stream(srv, queries[:SERVED], 8)
         recs = delta_records(np.random.default_rng(100), n, src, dst, 60, 20, 20)
         report, rec["apply_deltas_s"] = timed(srv.apply_deltas, recs)
@@ -1791,7 +1822,7 @@ def phase9b_store_full_width(dev, h, single_in, g_host):
             f"{rec['session_cold_s']:.3f} s: {sess.last.iterations} rounds, "
             f"{sess.patcher.free_rows} free rows")
         rec["epochs"] = []
-        for e in range(3):
+        for e in range(SESSION_EPOCHS):
             recs = delta_records(np.random.default_rng(200 + e), n, src, dst, 60, 20, 20)
             res, secs = timed(sess.apply_deltas, recs)
             row = dict(seconds=secs, free_rows=sess.patcher.free_rows, **dataclasses.asdict(res))
@@ -2046,10 +2077,11 @@ def same_as_single(res, single, what):
 
 def phase10_mesh(dev, h, single_in, in_shard_dir=None):
     """The paper's distributed engine on one NCCL rank: every MESH_RUNS
-    config at full width on phase 6's graph and seeds (a cold and a warm
-    solve, each state and tree = phase 6's single solve; Borůvka's = the
-    single Borůvka tree of phase 6's state), a profiler pass over the bucket
-    solve with the NCCL share of device time; the scale-10 fixed answers;
+    config at full width on phase 6's graph and seeds (a cold solve, and
+    for lvj_1k a warm one, each state and tree = phase 6's single solve;
+    Borůvka's = the single Borůvka tree of phase 6's state), a profiler
+    pass over the bucket solve with the NCCL share of device time; the
+    scale-10 fixed answers;
     scale 16 card against CPU in every config and from a store with all
     three shard flavours; then ``in_shard_dir(directory)`` (phase 10b's CLI
     runs) before the shard directory goes.  Launches no kernel.  Returns the
@@ -2082,7 +2114,9 @@ def phase10_mesh(dev, h, single_in, in_shard_dir=None):
         cfg = mesh_config(name)
         hm, prep_s = timed(lambda: SteinerSolver(cfg, device=dev).prepare(h.graph))
         cold, cold_s = timed(hm.solve, seeds)
-        warm, warm_s = timed(hm.solve, seeds)
+        # a warm solve of the lvj_1k preset only (the others' cut to keep the
+        # script in its time; phase 10c solves mesh1d bucket warm too)
+        warm, warm_s = timed(hm.solve, seeds) if name == "lvj_1k" else (cold, None)
         same_mesh(warm.raw, cold.raw, f"{name}: warm vs cold")
         same_as_single(cold.raw, boruvka_ref if cfg.mst_algo == "boruvka" else ref.raw,
                        f"{name} at full width")
@@ -2100,7 +2134,8 @@ def phase10_mesh(dev, h, single_in, in_shard_dir=None):
         rec["runs"][name] = run
         log(f"phase 10: {name} ({cfg.backend} {cfg.mode}, mesh {cfg.mesh_shape}) at full "
             f"width: prepare {prep_s:.3f} s (shard of {run['shard_rows']} rows), cold "
-            f"{cold_s:.3f} s, warm {warm_s:.3f} s; rounds {t.iterations}, relaxations "
+            f"{cold_s:.3f} s" + (f", warm {warm_s:.3f} s" if warm_s else "")
+            + f"; rounds {t.iterations}, relaxations "
             f"{t.relaxations}, messages {t.messages}; D={cold.total_distance} edges="
             f"{cold.num_edges}: state and tree = phase 6's single solve"
             + (" (Borůvka's tree of phase 6's state)" if cfg.mst_algo == "boruvka" else ""))
@@ -2230,6 +2265,107 @@ def cli_scale16(workdir):
         f"{comp['shard_files_rewritten']} of {comp['shard_files_total']} shard files "
         f"rewritten; obs validate: {rec['repro_torch.obs validate']['out']!r}")
     return rec
+
+
+# Phase 10c: examples/torch_steiner_knowledge_graph.py's queries at full width,
+# (|S|, strategy, draw seed): the example's, but drawn uniformly.  A bfs_level
+# draw builds a scipy CSR of 3.0e8 entries on the host at this width: its two
+# draws took 67.4 s on the card's host (an H100 machine, 8 cores), more than
+# the whole phase otherwise (the example's RMAT 13 keeps bfs_level)
+KG_QUERIES = ((8, "uniform", 100), (64, "uniform", 101), (256, "uniform", 102))
+
+
+def load_example(root, name):
+    """An example of the repo loaded by path as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, root / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase10c_knowledge_graph(dev, h, single_in, g_host, root):
+    """The paper's knowledge-graph workflow at full width on one NCCL rank:
+    examples/torch_steiner_knowledge_graph.py's SolverConfig (mesh1d, bucket,
+    local_steps=2, Prim) prepared on phase 6's graph (phase 10's partition
+    reused where the memo still holds it), its query loop and repeat over
+    phase 6's host edges, then phase 6's 1,024 seeds cold and warm, and the
+    same seeds under local_steps=1 for their rounds.  Each answer's state
+    and tree = a single-device pallas solve of its seeds on phase 6's handle
+    (the resident kernel, launches = rounds; phase 6's own for the 1,024
+    seeds); the mesh solves launch no kernel.  Returns the record and the
+    reference solves' launches."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import knobs
+    from repro_torch.solver import SteinerSolver
+
+    kg = load_example(root, "torch_steiner_knowledge_graph")
+    seeds, ref = single_in
+    src, dst, _, n = g_host
+    rec = {}
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = kg.knowledge_graph_config((1, 1))
+    builds = knobs.build_count("view")
+    hm, rec["prepare_s"] = timed(lambda: SteinerSolver(cfg, device=dev).prepare(h.graph))
+    rec["partition_rebuilt"] = knobs.build_count("view") - builds
+    log(f"phase 10c: {cfg.backend} {cfg.mode} local_steps={cfg.local_steps} mst_algo="
+        f"{cfg.mst_algo}, mesh {cfg.mesh_shape}: prepare {rec['prepare_s']:.3f} s, partition "
+        + ("reused from phase 10" if rec["partition_rebuilt"] == 0 else "rebuilt"))
+
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    recs = kg.answer_queries(hm, n, src, dst, KG_QUERIES, log=lambda m: log(f"phase 10c: {m}"))
+    rec["draw_s"] = time.perf_counter() - t0 - sum(r["s"] for r in recs)
+    recs.append(kg.repeat_query(hm, n, src, dst, log=lambda m: log(f"phase 10c: {m}")))
+    cold, cold_s = timed(hm.solve, seeds)
+    warm, warm_s = timed(hm.solve, seeds)
+    if any(kernel_counts().values()):
+        raise AssertionError(f"the mesh path launched {kernel_counts()}")
+    one, one_s = timed(SteinerSolver(cfg.replace(local_steps=1), device=dev).prepare(
+        h.graph).solve, seeds)
+    same_mesh(warm.raw, cold.raw, "10c: |S|=1024 warm vs cold")
+    same_as_single(cold.raw, ref.raw, "10c: |S|=1024")
+    same_as_single(one.raw, ref.raw, "10c: |S|=1024 under local_steps=1")
+
+    # each answer against a single-device pallas solve of its seeds
+    rounds = 0
+    for i, r in enumerate(recs):
+        single = h.solve(r["seeds"])
+        rounds += single.telemetry.iterations
+        same_as_single(r["out"].raw, single.raw, f"10c: query {i} (|S|={len(r['seeds'])})")
+    launches = kernel_counts()
+    if (launches["minplus_call"], launches["pack_records"]) != (rounds, rounds) or any(
+            v for k, v in launches.items() if k not in ("minplus_call", "pack_records")):
+        raise AssertionError(f"10c's reference solves launched {launches} for {rounds} rounds")
+    rec["queries"] = [dict(seeds=len(r["seeds"]), s=r["s"], rounds=r["out"].raw.iterations,
+                           relaxations=r["out"].raw.relaxations, messages=r["out"].raw.messages,
+                           total_distance=r["out"].total_distance, num_edges=r["out"].num_edges)
+                      for r in recs]
+    t, t1 = cold.telemetry, one.telemetry
+    rec.update(cold_s=cold_s, warm_s=warm_s, rounds=t.iterations, relaxations=t.relaxations,
+               messages=t.messages, local_steps_1=dict(rounds=t1.iterations, s=one_s,
+                                                       messages=t1.messages),
+               reference_launches=launches["minplus_call"],
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"phase 10c: |S|={len(seeds)} (phase 6's seeds): cold {cold_s:.3f} s, warm {warm_s:.3f} "
+        f"s; rounds {t.iterations}, relaxations {t.relaxations}, messages {t.messages}; under "
+        f"local_steps=1 rounds {t1.iterations}, messages {t1.messages} ({one_s:.3f} s); "
+        f"D={cold.total_distance} edges={cold.num_edges}")
+    log(f"phase 10c: each query's seeds, seconds, rounds, relaxations, messages, D and edges: "
+        f"{json.dumps(rec['queries'])}")
+    log(f"phase 10c: every answer's state and tree = a single pallas solve of its seeds "
+        f"(phase 6's for |S|={len(seeds)}); the mesh solves launched no kernel, the "
+        f"{len(recs)} reference solves {launches['minplus_call']} minplus_call (= rounds); seed "
+        f"draws {rec['draw_s']:.1f} s; peak {rec['peak_mem_gb']:.1f} GB")
+    del hm, cold, warm, one, recs
+    dist.destroy_process_group()  # the world of one the backend made
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 10c: {rec['phase_s']:.1f} s")
+    return rec, launches["minplus_call"]
 
 
 def phase10b_obs(dev, h, single_in, lanes_in, mesh_rec):
@@ -3605,8 +3741,6 @@ def phase12e_steiner_sampled(dev, h, root, steps=8, n_seeds=12):
     seeds, each subgraph from phase 6's prepared mode="pallas" handle (the
     min-plus kernel, launches = rounds); the first tree = steiner_tree's
     (mode "bucket") bit for bit."""
-    import importlib.util
-
     import numpy as np
     import torch
 
@@ -3615,10 +3749,7 @@ def phase12e_steiner_sampled(dev, h, root, steps=8, n_seeds=12):
     from repro_torch.models import gnn
     from repro_torch.optim import OptConfig
 
-    spec = importlib.util.spec_from_file_location(
-        "torch_gnn_steiner_sampling", root / "examples" / "torch_gnn_steiner_sampling.py")
-    example = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(example)
+    example = load_example(root, "torch_gnn_steiner_sampling")
     g, n = h.graph, h.graph.n
     one_way = int(torch.isfinite(g.w).sum()) // 2  # from_edges: [src, dst] then padding
     src, dst = g.src[:one_way], g.dst[:one_way]
@@ -3932,7 +4063,8 @@ def phase12_models(dev, holder, root, graph_job):
 # ---- phase 14: the dry-run and the examples, each a process of its own
 
 DRYRUN_CELLS = (("starcoder2-3b", "decode_32k"), ("steiner", "lvj_1k"))
-EXAMPLES = ("torch_quickstart.py", "torch_serve_queries.py", "torch_build_store.py")
+EXAMPLES = ("torch_quickstart.py", "torch_serve_queries.py", "torch_build_store.py",
+            "torch_steiner_knowledge_graph.py")
 PREDICT_14B = """
 import json
 from repro_torch.configs.base import ShapeSpec
@@ -4466,6 +4598,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only-gate", action="store_true",
                     help="a rehearsal of phase 16 alone (phase 1's build, then the gate), "
                     "no result line")
+    ap.add_argument("--only-kg", action="store_true",
+                    help="a rehearsal of phase 10c: phases 1, 2, 6 and 10c only, no result line")
     ap.add_argument("--only-analysis", action="store_true",
                     help="a rehearsal of phase 15 on an RMAT of --scale (phases 1 and 15), "
                     "no result line")
@@ -4533,6 +4667,18 @@ def main(argv=None) -> int:
         if args.json:
             Path(args.json).parent.mkdir(parents=True, exist_ok=True)
             Path(args.json).write_text(json.dumps({"device": smi, "analysis": rec15}, indent=1))
+        return 0
+    if args.only_kg:
+        rec, h, _, single_in, g_host = phase6_full_width(dev, args.scale, args.seeds, tally)
+        done("6")
+        kg_rec, _ = phase10c_knowledge_graph(dev, h, single_in, g_host, root)
+        done("10c")
+        log(f"script {time.perf_counter() - t_start:.1f} s after the imports; by phase "
+            f"{json.dumps(seconds)}")
+        if args.json:
+            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json).write_text(json.dumps({"device": smi, "knowledge_graph": kg_rec},
+                                                  indent=1))
         return 0
     if args.only_models:  # phase 6's handle, then phases 11 (with --trainer), 12, 13e
         graph_job = HostJob(reddit_graph_job)
@@ -4609,8 +4755,11 @@ def main(argv=None) -> int:
     obs_rec, obs_launches = phase10b_obs(dev, h, single_in, lanes_in, mesh_rec)
     obs_rec["cli"] = mesh_rec.pop("in_shard_dir")
     obs_rec["cli_s"] = mesh_rec.pop("in_shard_dir_s")
-    del single_in
     done("10b")
+    # ---- phase 10c (the knowledge-graph workflow at full width, one NCCL rank)
+    kg_rec, kg_launches = phase10c_knowledge_graph(dev, h, single_in, p15["g_host"], root)
+    del single_in
+    done("10c")
     times = kernel_times(dev, h.artifact("ell"), st, {"full": hb, "scale16": blocked16},
                          lanes_in, seg_in, tally)
     done("kernel times")
@@ -4656,6 +4805,7 @@ def main(argv=None) -> int:
                **{f"{k[:-1]}, phase 9b)": v for k, v in store_launches.items()},
                "minplus_call (traced pallas, phase 10b)": obs_launches["single"],
                "minplus_call (lanes, traced server, phase 10b)": obs_launches["lanes"],
+               "minplus_call (pallas references of the mesh answers, phase 10c)": kg_launches,
                "every kernel (trainer, phase 11)": sum(trainer_launches.values()),
                "every kernel (GNN and MIND models, phase 12)": sum(model_launches.values()),
                "minplus_call (Steiner sampler, phase 12e)": models_rec["12e"]["launches"],
@@ -4669,7 +4819,7 @@ def main(argv=None) -> int:
                 + sched_launches["minplus_call (pallas_frontier)"]
                 + store_launches["minplus_call (pallas from a store)"]
                 + store_launches["minplus_call (pallas, compacted and overlay stores)"]
-                + obs_launches["single"] + models_rec["12e"]["launches"]
+                + obs_launches["single"] + kg_launches + models_rec["12e"]["launches"]
                 + analysis_rec["launches"]["single"] + gate_rec["launches"],
                 "minplus_call (lanes)": lane_launches
                 + store_launches["minplus_call (lanes, store-backed server)"]
@@ -4707,7 +4857,8 @@ def main(argv=None) -> int:
              "full_width": rec, "serving": serve_rec, "blocked_full_width": blocked_rec,
              "schedules_full_width": sched_rec, "scale16_lane_launches": lanes16,
              "scale16_store_launches": store16, "store_full_width": store_rec,
-             "mesh": mesh_rec, "obs": obs_rec, "trainer": trainer_rec, "models": models_rec,
+             "mesh": mesh_rec, "obs": obs_rec, "knowledge_graph": kg_rec,
+             "trainer": trainer_rec, "models": models_rec,
              "state_per_device": state_rec, "dryrun": dryrun_rec, "analysis": analysis_rec,
              "gate": gate_rec, "launches_by_path": by_path,
              "kernel_times": times, "kernels": kernels, "seconds": total_s}, indent=1))

@@ -16,6 +16,8 @@ import torch
 
 from repro_torch.knobs import count_build
 
+PAD_WEIGHT = float("inf")
+
 
 @dataclasses.dataclass(frozen=True)
 class Graph:
@@ -41,6 +43,12 @@ class Graph:
     @property
     def device(self) -> torch.device:
         return self.src.device
+
+    def degree(self) -> torch.Tensor:
+        """(n,) int32 out-degree per vertex (padding excluded)."""
+        real = torch.isfinite(self.w).to(torch.int32)
+        out = torch.zeros((self.n,), dtype=torch.int32, device=self.device)
+        return out.index_add_(0, self.src, real)
 
     def to(self, device) -> "Graph":
         """A copy on ``device`` (self when already there)."""
@@ -82,7 +90,7 @@ def from_edges(
     if pad:
         src = np.concatenate([src, np.zeros(pad, np.int32)])
         dst = np.concatenate([dst, np.zeros(pad, np.int32)])
-        w = np.concatenate([w, np.full(pad, np.inf, np.float32)])
+        w = np.concatenate([w, np.full(pad, PAD_WEIGHT, np.float32)])
     return Graph(
         src=torch.from_numpy(src).to(device),
         dst=torch.from_numpy(dst).to(device),

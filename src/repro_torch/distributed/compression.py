@@ -68,6 +68,14 @@ def _group(axis):
     return axis.get_group()
 
 
+def group_mean(total: torch.Tensor, n: int) -> torch.Tensor:
+    """``total / n`` divided as ``jax.lax.pmean`` divides its sum: by ``n``
+    as an f32 tensor on ``total``'s device (a Python divisor would make
+    CUDA multiply by its reciprocal, which is not exact for n = 3, 5, 6,
+    7, ...)."""
+    return total / torch.full((), float(n), dtype=torch.float32, device=total.device)
+
+
 def compressed_psum(grads: Any, err: Any, axis=None) -> Tuple[Any, Any]:
     """int8-compressed mean of each rank's ``grads`` over ``axis``.
 
@@ -84,7 +92,7 @@ def compressed_psum(grads: Any, err: Any, axis=None) -> Tuple[Any, Any]:
         q, s = qs
         deq = _dequant(q, s, g.shape, torch.float32)
         dist.all_reduce(deq, op=dist.ReduceOp.SUM, group=group)
-        return deq / n
+        return group_mean(deq, n)
 
     return tree_map(one, qtree, grads), new_err
 

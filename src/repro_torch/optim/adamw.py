@@ -26,6 +26,7 @@ import itertools
 import math
 from typing import Any, List, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.distributed.sharding import (P, NamedSharding, ShapeDtypeStruct, axes_index,
@@ -73,7 +74,22 @@ def _q8_read(st: Q8State, *, sqrt_scale: bool = False) -> torch.Tensor:
 
 def _dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Flat f32 values of whole blocks: payload times block scale / 127."""
-    return (q.float().reshape(-1, QBLOCK) * scale[:, None] / 127.0).reshape(-1)
+    # 127 as a tensor on the payload's device: CUDA divides by a Python
+    # scalar through its reciprocal, one rounding away from the CPU's (and
+    # the reference's) division
+    d127 = torch.full((), 127.0, device=q.device)
+    return (q.float().reshape(-1, QBLOCK) * scale[:, None] / d127).reshape(-1)
+
+
+def _sqrt_(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root of ``x`` (the reference's),
+    in place on the card (the callers pass temporaries).  The card's f32
+    ``sqrt`` is correctly rounded; PyTorch's vectorized one on the CPU is
+    one ulp off for some inputs, so there it is taken in f64 and rounded
+    once, which is exact since f64 holds more than 2·24 + 2 bits."""
+    if x.is_cuda:
+        return x.sqrt_()
+    return x.double().sqrt_().float()
 
 
 def _quant(flat: torch.Tensor):
@@ -93,7 +109,7 @@ def _q8_write(st: Q8State, x: torch.Tensor, *, sqrt_scale: bool = False) -> Q8St
     """
     flat = x.reshape(-1).float()
     if sqrt_scale:
-        flat = torch.sqrt(torch.clamp(flat, min=0.0))
+        flat = _sqrt_(torch.clamp(flat, min=0.0))
     flat = torch.nn.functional.pad(flat, (0, st.q.shape[0] - flat.shape[0]))
     q, scale = _quant(flat)
     return Q8State(q=q, scale=scale, shape=st.shape)
@@ -120,7 +136,7 @@ def _adam(p, g, m, v, b1c, b2c, cfg: OptConfig):
     m.mul_(cfg.b1).add_(g32, alpha=1 - cfg.b1)
     v.mul_(cfg.b2).add_(g32.square(), alpha=1 - cfg.b2)
     del g32
-    step = (m / b1c).div_((v / b2c).sqrt_().add_(cfg.eps))
+    step = (m / b1c).div_(_sqrt_(v / b2c).add_(cfg.eps))
     p32 = p.float()
     step.add_(p32, alpha=cfg.weight_decay)
     p.copy_(p32.sub_(step, alpha=cfg.lr))
@@ -134,6 +150,23 @@ def _local(t, want: tuple, what: str):
     return t.to_local()
 
 
+def bias_corrections(count: torch.Tensor, cfg: OptConfig):
+    """``1 - b1**count`` and ``1 - b2**count`` in f32 for an int32 step
+    count on any device.
+
+    The power of the f32 beta is taken in f64 and rounded once to f32: the
+    correctly rounded f32 power, the same on the card and the CPU.  An f32
+    ``pow`` is not correctly rounded: CUDA's differs from the CPU's at some
+    counts, and the CPU's (= the reference's) is one ulp off at a few (for
+    b = 0.999 at counts 2958 and 3606 of the first 20,000)."""
+    c = count.double()
+
+    def corr(b):
+        return 1.0 - torch.pow(float(np.float32(b)), c).float()
+
+    return corr(cfg.b1), corr(cfg.b2)
+
+
 @sync_free
 def adamw_update(params: Any, grads: Any, state: Any, cfg: OptConfig):
     """One AdamW step → (params, state), both updated in place.
@@ -143,9 +176,7 @@ def adamw_update(params: Any, grads: Any, state: Any, cfg: OptConfig):
     ``opt_state_specs``, gradients constrained to the parameters' shardings)
     each rank updates its own blocks, with the same arithmetic."""
     count = state["count"] + 1
-    c = count.to_local() if is_dtensor(count) else count
-    b1c = 1.0 - torch.pow(cfg.b1, c.float())
-    b2c = 1.0 - torch.pow(cfg.b2, c.float())
+    b1c, b2c = bias_corrections(count.to_local() if is_dtensor(count) else count, cfg)
 
     def upd(p, g, mv):
         if is_dtensor(p) and cfg.quantized:
@@ -213,7 +244,7 @@ def _q8_update_sharded(p, g, mv, b1c, b2c, cfg: OptConfig) -> None:
     mf = _dequant(m.q.to_local(), m.scale.to_local())
     vf = _dequant(v.q.to_local(), v.scale.to_local()).square()
     _adam(pf, gf, mf, vf, b1c, b2c, cfg)
-    for st, x in ((m, mf), (v, torch.sqrt(torch.clamp(vf, min=0.0)))):
+    for st, x in ((m, mf), (v, _sqrt_(torch.clamp(vf, min=0.0)))):
         q, scale = _quant(x)
         st.q.to_local().copy_(q)
         st.scale.to_local().copy_(scale)

@@ -76,6 +76,19 @@ def test_compress_tree_is_bit_identical(seed, dtype):
             deq.numpy(), np.asarray(jc._dequant(q, s, g[k].shape, jnp.float32)), err_msg=k)
 
 
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 6, 7, 8])
+def test_group_mean_divides_like_pmean(n):
+    """The compressed mean's division by the group size is a true f32
+    division (``psum / n``, as ``jax.lax.pmean``), not a multiply by 1/n."""
+    x = (np.random.default_rng(n).normal(size=100_003) * 1e3).astype(np.float32)
+    got = tc.group_mean(torch.from_numpy(x), n)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), x / np.float32(n))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jnp.asarray(x) / jnp.float32(n)))
+    if n in (3, 5, 6, 7):  # where the reciprocal is inexact, a multiply would differ
+        assert np.any(x * np.float32(1 / n) != x / np.float32(n))
+
+
 def test_round_half_to_even_like_the_reference():
     """A block whose scaled values fall on .5 exactly: both round to even."""
     x = np.zeros(256, np.float32)

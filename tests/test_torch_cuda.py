@@ -1187,3 +1187,108 @@ def test_steiner_bench_group_on_card(cuda):
     for m in ("bucket", "frontier", "pallas"):
         assert res[f"steiner_warm_ms_{m}"].value > 0
     assert res["steiner_frontier_messages"].value == regress.pinned_frontier_messages("cpu")
+
+
+# ---- the card's 8-bit AdamW, compressed mean and the knowledge-graph
+# workflow, each bit for bit the CPU's
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_adamw_on_card_matches_cpu(cuda, dtype):
+    """Three 8-bit AdamW steps from the same parameters, gradients and zero
+    state, sizes off QBLOCK: parameters, payloads, scales and the count
+    equal."""
+    from repro_torch.optim import OptConfig, adamw_init, adamw_update
+
+    gen = torch.Generator().manual_seed(7)
+    cpu = {f"p{n}": torch.randn(n, generator=gen).to(dtype) for n in (1, 255, 257, 100_003)}
+    card = {k: v.to(cuda) for k, v in cpu.items()}
+    opt = OptConfig(lr=1e-2, weight_decay=0.1, quantized=True)
+    sc, sd = adamw_init(cpu, opt), adamw_init(card, opt)
+
+    def differ(a, b):  # where two tensors differ: (count, first indices)
+        bad = torch.nonzero(a.cpu().reshape(-1) != b.reshape(-1)).flatten()
+        return bad.numel(), bad[:8].tolist()
+
+    for step in range(1, 4):
+        g = {k: (torch.randn(v.shape, generator=gen) * 0.01).to(dtype) for k, v in cpu.items()}
+        adamw_update(cpu, g, sc, opt)
+        adamw_update(card, {k: v.to(cuda) for k, v in g.items()}, sd, opt)
+        assert int(sd["count"]) == int(sc["count"]) == step
+        for k in cpu:
+            assert card[k].dtype == dtype
+            for mv in ("m", "v"):
+                a, b = sd["mu"][k][mv], sc["mu"][k][mv]
+                assert torch.equal(a.scale.cpu(), b.scale), (step, k, mv, differ(a.scale, b.scale))
+                assert torch.equal(a.q.cpu(), b.q), (step, k, mv, differ(a.q, b.q))
+            assert torch.equal(card[k].cpu(), cpu[k]), (step, k, differ(card[k], cpu[k]))
+
+
+def test_update_sqrt_on_card_matches_cpu(cuda):
+    """The update's square root: the card's own f32 ``sqrt`` against the
+    CPU's f64 route, on ten million values (both correctly rounded)."""
+    from repro_torch.optim.adamw import _sqrt_
+
+    x = torch.rand(10_000_000, generator=torch.Generator().manual_seed(7)) * 1e-4
+    assert torch.equal(_sqrt_(x.to(cuda)).cpu(), _sqrt_(x.clone()))
+
+
+@pytest.mark.parametrize("b", [0.9, 0.95, 0.99, 0.999])
+def test_bias_corrections_on_card_match_cpu(cuda, b):
+    """``1 - b**count`` of the update for every count to 20,000: the card's
+    (one launch over all counts) against the CPU's, each count a 0-d tensor
+    as the update makes it (an f32 ``pow`` on the card differed at 76
+    counts for b = 0.999)."""
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.adamw import bias_corrections
+
+    cfg = OptConfig(b1=b, b2=b)
+    counts = torch.arange(1, 20_001, dtype=torch.int32)
+    got = bias_corrections(counts.to(cuda), cfg)[0].cpu()
+    want = torch.stack([bias_corrections(c, cfg)[0] for c in counts])
+    bad = torch.nonzero(got != want).flatten() + 1
+    assert bad.numel() == 0, f"b={b}: {bad.numel()} counts differ, first {bad[:20].tolist()}"
+
+
+@pytest.mark.parametrize("n", [3, 5, 6, 7])
+def test_group_mean_on_card_matches_cpu(cuda, n):
+    """The compressed mean's division by the group size (3, 5, 6, 7: an
+    inexact reciprocal), card against CPU."""
+    from repro_torch.distributed.compression import group_mean
+
+    x = torch.randn(100_003, generator=torch.Generator().manual_seed(n)) * 1e3
+    assert torch.equal(group_mean(x.to(cuda), n).cpu(), group_mean(x, n))
+
+
+def test_knowledge_graph_example_on_card_matches_cpu(cuda):
+    """examples/torch_steiner_knowledge_graph.py at its RMAT 13 on one NCCL
+    rank against its own CPU run: every query's state, tree and counters
+    bit for bit, the small queries at the Mehlhorn oracle, and nothing
+    rebuilt on the repeat."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / "torch_steiner_knowledge_graph.py"
+    spec = importlib.util.spec_from_file_location("torch_steiner_knowledge_graph", path)
+    kg = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kg)
+    src, dst, w, n = rmat_edges(13, 8, max_weight=500, seed=11)
+    edges = list(zip(src.tolist(), dst.tolist(), w.tolist()))
+    runs = {}
+    for d in (cuda, "cpu"):
+        h = SteinerSolver(kg.knowledge_graph_config((1, 1)), device=d).prepare(
+            from_edges(src, dst, w, n, device="cpu"))
+        assert h.artifact("edges")[0].device.type == torch.device(d).type
+        recs = kg.answer_queries(h, n, src, dst, edges=edges if d == cuda else None,
+                                 log=lambda *a: None)
+        recs.append(kg.repeat_query(h, n, src, dst, log=lambda *a: None))
+        runs[str(d)] = recs
+    assert [r["out"].num_edges for r in runs[str(cuda)][:3]] == [29, 194, 621]
+    for a, b in zip(runs[str(cuda)], runs["cpu"]):
+        assert np.array_equal(a["seeds"], b["seeds"])
+        for f in MESH_FIELDS:
+            x, y = getattr(a["out"].raw, f), getattr(b["out"].raw, f)
+            assert (x is None) == (y is None), f
+            if x is not None:
+                np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=f)
+    assert runs[str(cuda)][3]["rebuilds"] == 0

@@ -69,6 +69,21 @@ def test_from_edges_matches(pad_to, symmetrize):
         assert_same(getattr(jg, f), getattr(tg, f))
 
 
+@pytest.mark.parametrize("pad_to", [1, 8, 13])
+def test_degree_and_pad_weight_match(pad_to):
+    """Out-degrees with the padding edges (+inf, at vertex 0) left out, and
+    the padding weight itself."""
+    src, dst, w, n, _ = instance(1)
+    jg, tg = both_graphs(src, dst, w, n, pad_to=pad_to)
+    want = jg.degree()
+    got = tg.degree()
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    assert_same(want, got)
+    assert tgraph.PAD_WEIGHT == float(jgraph.PAD_WEIGHT) == float("inf")
+    pad = np.isinf(host(tg.w))
+    assert pad.sum() == (-len(src) * 2) % pad_to and np.all(host(tg.w)[pad] == tgraph.PAD_WEIGHT)
+
+
 def _star_plus_rmat():
     """An RMAT graph plus a hub of degree 300, so k=4 splits hubs into many
     rows and k=32 still splits the hub."""

@@ -55,6 +55,65 @@ def test_q8_write_and_read_match(shape, sqrt_scale):
                  jadam._q8_read(jst, sqrt_scale=sqrt_scale), **F32)
 
 
+@pytest.mark.parametrize("size", [1, 255, 257, 100_003])
+def test_dequant_is_the_reference_division(size):
+    """An 8-bit moment read back is ``q * scale / 127`` divided, bit for bit
+    the reference's read (a multiply by 1/127 differs for ~4.5 % of them)."""
+    x = _rand((size,), size) * 10.0
+    jst = jadam._q8_write(jadam._q8_zeros((size,)), jnp.asarray(x))
+    tst = tadam.Q8State(q=torch.from_numpy(np.array(jst.q)),
+                        scale=torch.from_numpy(np.array(jst.scale)), shape=(size,))
+    got = tadam._q8_read(tst).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jadam._q8_read(jst)))
+    qs = np.array(jst.q).astype(np.float32).reshape(-1, 128) * np.array(jst.scale)[:, None]
+    np.testing.assert_array_equal(got, (qs / np.float32(127)).reshape(-1)[:size])
+
+
+def test_sqrt_is_correctly_rounded():
+    """The update's square root equals numpy's and the reference's (both
+    correctly rounded) on a million f32 values, where PyTorch's own f32
+    ``sqrt`` need not."""
+    x = np.random.default_rng(7).random(1_000_000).astype(np.float32) * 1e-4
+    got = tadam._sqrt_(torch.from_numpy(x.copy()))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.sqrt(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jnp.sqrt(jnp.asarray(x))))
+
+
+def _nearest_f32(x):
+    """The f32 nearest the rational ``x`` (one rounding, exact)."""
+    from fractions import Fraction
+
+    f = np.float32(float(x))
+    near = (np.nextafter(f, np.float32(-1)), f, np.nextafter(f, np.float32(2)))
+    return min(near, key=lambda v: abs(Fraction(float(v)) - x))
+
+
+# counts to 4,000 where the reference's f32 power is one ulp from the
+# correctly rounded one (the port's)
+REFERENCE_POW_ULP_OFF = {0.9: [], 0.95: [], 0.99: [], 0.999: [2958, 3606]}
+
+
+@pytest.mark.parametrize("b", sorted(REFERENCE_POW_ULP_OFF))
+def test_bias_corrections_match_the_reference(b):
+    """``1 - b**count`` for counts 1 to 4,000: the reference's but where the
+    reference's own f32 power is one ulp off the correctly rounded value,
+    which the port computes (on the card as on the CPU)."""
+    from fractions import Fraction
+
+    counts = np.arange(1, 4001, dtype=np.int32)
+    got = tadam.bias_corrections(torch.from_numpy(counts), OptConfig(b1=b, b2=b))
+    assert got[0].dtype == torch.float32 and torch.equal(got[0], got[1])
+    want = np.asarray(jax.jit(lambda c: 1.0 - b ** c.astype(jnp.float32))(jnp.asarray(counts)))
+    off = (np.nonzero(got[0].numpy() != want)[0] + 1).tolist()
+    assert off == REFERENCE_POW_ULP_OFF[b]
+    base = Fraction(float(np.float32(b)))
+    for c in off:
+        assert got[0][c - 1].item() == np.float32(1) - _nearest_f32(base ** c)
+    one = tadam.bias_corrections(torch.tensor(3, dtype=torch.int32), OptConfig(b1=b, b2=b))
+    assert one[0].shape == () and one[0].item() == got[0][2].item()
+
+
 def _state_pair(params_np, quantized, count):
     """A state several steps in, in both packages: random moments (v >= 0)."""
     mu = {}
