@@ -45,6 +45,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import mesh as meshmod
 from repro_torch.knobs import sync_free
 from repro_torch.core.distance_graph import edge_pair_tables
@@ -424,7 +425,9 @@ def _finish(st, gids, off, esrc, edst, ew, *, S, mst_algo, pair_chunks, gather_s
         new[t[hit].long()] = True
         ch = all_reduce(_count(new != marked)[None], MAX, g_all)
         marked, ptr = new, ptr[ptr.long()]
-        if not int(ch):
+        done = not int(ch)
+        obs.host_read(2)  # the masked gather and the flag
+        if done:
             break
     path_edge = marked & (st.pred != gids)
     path_w = torch.where(path_edge, st.dist - distf[st.pred.long()], 0.0)
@@ -614,6 +617,7 @@ def _build(mesh: meshmod.Mesh, cfg: DistSteinerConfig, vert_axis: str, replica_a
         while work and it < cap:
             theta = loop.theta
             changed, max_fin = edge_round(loop, it).tolist()  # the round's one host sync
+            obs.host_read()
             if cfg.mode == "bucket":
                 # terminate only on a quiet round with every source active
                 done = not changed and theta >= max_fin
@@ -682,6 +686,7 @@ def _build(mesh: meshmod.Mesh, cfg: DistSteinerConfig, vert_axis: str, replica_a
         it, work = 0, True
         while work and it < cap:
             work = bool(frontier_round(loop, it))  # the round's one host sync
+            obs.host_read()
             it += 1
         # this shard's directed edges from the ELL rows (padding slots carry
         # +inf weight, inert in the pair tables)
@@ -734,6 +739,7 @@ def result_from_device(out, n: int) -> DistSteinerResult:
     (
         dist, lab, pred, marked, path_edge, bu, bv, bw, bvalid, total, ne, stats, hist, histr,
     ) = [x.cpu().numpy() for x in out]
+    obs.host_read(len(out))
     return DistSteinerResult(
         dist=dist[:n],
         lab=lab[:n],

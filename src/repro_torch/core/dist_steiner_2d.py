@@ -24,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import mesh as meshmod
 from repro_torch.core.dist_steiner import _count, _finish, _init_block, _rank_rows, _Round
 from repro_torch.core.mesh import MAX, SUM, all_gather_tiled, all_reduce, lex_pmin
@@ -202,6 +203,7 @@ def make_dist_steiner_2d(
             mx_l = torch.where(fin, st.dist, -INF).max()
             flag = all_reduce(torch.stack([(imp_l > 0).to(torch.float32), mx_l]), MAX, g_both)
             changed, max_fin = flag.tolist()  # the round's one host sync
+            obs.host_read()
             if mode == "bucket":
                 done = not changed and theta >= max_fin
                 if not changed:

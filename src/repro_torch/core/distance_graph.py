@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.graph import Graph, segment_min
 from repro_torch.core.voronoi import VoronoiState
 
@@ -46,6 +47,7 @@ def local_pair_tables(
     """
     cross = (lab_src != lab_dst) & (lab_src < S) & (lab_dst < S) & torch.isfinite(w)
     idx = torch.nonzero(cross).squeeze(1)
+    obs.host_read()
     src, dst, w = src[idx], dst[idx], w[idx]
     dist_src, dist_dst = dist_src[idx], dist_dst[idx]
     lab_src, lab_dst = lab_src[idx], lab_dst[idx]
@@ -76,6 +78,7 @@ def edge_pair_tables(
     lab_src, lab_dst = lab[src], lab[dst]
     cross = (lab_src != lab_dst) & (lab_src < S) & (lab_dst < S) & torch.isfinite(w)
     idx = torch.nonzero(cross).squeeze(1)
+    obs.host_read()
     del cross
     src, dst = src[idx], dst[idx]
     lab_src, lab_dst = lab_src[idx], lab_dst[idx]

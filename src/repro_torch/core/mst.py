@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.graph import segment_min
 
 INF = float("inf")
@@ -68,6 +69,7 @@ def boruvka_dense(wmat: torch.Tensor) -> torch.Tensor:
     while rounds < 2 * S + 2:
         # mask intra-component entries; stop once no inter-component edge
         w = torch.where(comp[:, None] == comp[None, :], INF, wmat)
+        obs.host_read()
         if not bool(torch.isfinite(w).any()):
             break
         seg = comp.long()
@@ -85,6 +87,7 @@ def boruvka_dense(wmat: torch.Tensor) -> torch.Tensor:
         # duplicate indices and different values would not be deterministic)
         chosen[u[valid], v[valid]] = True
         chosen[v[valid], u[valid]] = True
+        obs.host_read(4)  # the four masked gathers
         # hook: component root c adopts the component of the FOREIGN endpoint
         outside = torch.where(comp[u] == ids, v, u)
         tgt = torch.where(valid, comp[outside], ids)
@@ -93,7 +96,10 @@ def boruvka_dense(wmat: torch.Tensor) -> torch.Tensor:
         mutual = (tgt[tgt.long()] == ids) & (tgt != ids)
         tgt = torch.where(mutual & (ids < tgt), ids, tgt)
         # pointer jumping to the chain root (acyclic after 2-cycle removal)
-        while bool((tgt != tgt[tgt.long()]).any()):
+        while True:
+            obs.host_read()
+            if not bool((tgt != tgt[tgt.long()]).any()):
+                break
             tgt = tgt[tgt.long()]
         comp = tgt[seg]
         # canonical representative = min member id of the merged component
@@ -117,6 +123,7 @@ def _root_parents(adj: torch.Tensor) -> torch.Tensor:
     while True:
         nbr_vis = adj & visited[None, :]
         has = nbr_vis.any(dim=1) & ~visited
+        obs.host_read()
         if not bool(has.any()):
             return parent
         # torch.argmax rejects bool and, like jnp.argmax, returns the first

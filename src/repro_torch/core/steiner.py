@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import distance_graph as dgmod
 from repro_torch.core import mst as mstmod
 from repro_torch.core import tree as treemod
@@ -57,7 +58,10 @@ def finish_pipeline(
     if mst_algo not in ("prim", "boruvka"):
         raise ValueError(f"unknown mst_algo: {mst_algo!r}")
     dmat, umat, vmat = dgmod.distance_graph(g, st, S)
-    parent = mst_parent(dmat, S, mst_algo)
+    # Prim never syncs: the span times the host's launch of its S - 1
+    # steps, which is its wall time where the tail is launch-bound
+    with obs.child("solve:mst", "solve:tail"):
+        parent = mst_parent(dmat, S, mst_algo)
     tree = treemod.extract_tree(g.n, st, dmat, umat, vmat, parent, S)
     return SteinerResult(tree=tree, state=st, stats=stats, parent=parent, dmat=dmat)
 

@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.mst import mst_pairs
 from repro_torch.core.voronoi import VoronoiState
 
@@ -76,7 +77,9 @@ def mark_paths(st: VoronoiState, endpoints: torch.Tensor) -> torch.Tensor:
         new = marked.clone()
         new[ptr[marked]] = True
         ptr = ptr[ptr]
-        if not bool(torch.any(new != marked)):
+        done = not bool(torch.any(new != marked))
+        obs.host_read(2)  # the masked gather and the flag
+        if done:
             return new
         marked = new
 
@@ -95,6 +98,7 @@ def extract_tree(
     endpoints = torch.zeros(n, dtype=torch.bool, device=st.dist.device)
     endpoints[bu[bvalid]] = True
     endpoints[bv[bvalid]] = True
+    obs.host_read(2)  # the two masked gathers
     marked = mark_paths(st, endpoints)
 
     # In-cell tree edges: (pred[v], v) for marked non-root vertices.

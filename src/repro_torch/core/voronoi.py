@@ -35,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.graph import EllGraph, Graph, segment_min
 
 INF = float("inf")
@@ -172,6 +173,7 @@ def delta_from_sums(per_exp: torch.Tensor) -> np.float32:
     """Δ from :func:`weight_sums`: the exact sum rounded once to f32,
     divided in f32 by the count, at least 1e-6.  One host sync."""
     sums = per_exp.tolist()
+    obs.host_read()
     # a significand at exponent e weighs 2**(max(e, 1) - 150)
     total = sum(s << (max(e, 1) - 1) for e, s in enumerate(sums[:256]) if s)
     mean = _round_f32(total, 149) / np.float32(max(sums[256], 1))
@@ -361,6 +363,7 @@ def _voronoi_cells(
             # improved-vertex set
             _hist_write(hist, it, _round_row(imp, dmsg, imp, new.dist))
             work = bool(_changed(st, new))  # the round's one host sync
+            obs.host_read()
         else:
             # frontier = vertices under the bucket threshold
             fin = torch.isfinite(new.dist)
@@ -369,6 +372,7 @@ def _voronoi_cells(
             max_fin = torch.where(fin, new.dist, -INF).max()
             changed, max_fin = torch.stack(  # the round's one host sync
                 [_changed(st, new).to(torch.float32), max_fin]).tolist()
+            obs.host_read()
             # Stop only after a quiet round with every source active (a
             # dense fixpoint check); a quiet round otherwise raises the
             # threshold by Δ.  The stall guard (d <= 0) is the reference's
@@ -431,7 +435,10 @@ def voronoi_cells_frontier(
     rlx = torch.zeros((), dtype=torch.float32, device=dev)
     msg = torch.zeros((), dtype=torch.float32, device=dev)
     it = 0
-    while it < cap and bool(dirty.any()):  # the round's one host sync
+    while it < cap:
+        obs.host_read()
+        if not bool(dirty.any()):  # the round's one host sync
+            break
         # --- the K lowest-distance dirty rows (the "priority queue")
         rowdist = torch.where(dirty, st.dist[row2v], INF)
         rows = smallest_k(rowdist, K)

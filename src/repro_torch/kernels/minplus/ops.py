@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.graph import EllGraph, segment_min
 from repro_torch.core.voronoi import (
     VoronoiState,
@@ -155,6 +156,7 @@ def voronoi_cells_pallas(
     msg = torch.zeros((), dtype=torch.float32, device=dev)
     it = 0
     changed = True
+    obs.round_boundary(read=False)
     while changed and it < cap:
         st, upd = relax_ell(
             ell, st, block_rows=block_rows, src_block=src_block, layout=layout
@@ -166,6 +168,7 @@ def voronoi_cells_pallas(
         msg += dmsg.to(torch.float32)
         it += 1
         changed = bool(imp)  # the round's one host sync
+        obs.round_boundary()
     return st, _stats(it, rlx, msg, hist, telemetry_rounds)
 
 
@@ -214,6 +217,7 @@ def voronoi_cells_pallas_lanes(
     it = torch.zeros(B, dtype=torch.int32, device=dev)
     active = torch.ones(B, dtype=torch.bool, device=dev)
     rounds = 0
+    obs.round_boundary(read=False)
     while rounds < cap:
         st, upd = relax_ell(
             ell, st, block_rows=block_rows, src_block=src_block, seg=seg, active=active,
@@ -230,7 +234,9 @@ def voronoi_cells_pallas_lanes(
         it += active.to(torch.int32)
         active &= imp > 0
         rounds += 1
-        if not bool(active.any()):  # the round's one host sync
+        busy = bool(active.any())  # the round's one host sync
+        obs.round_boundary()
+        if not busy:
             break
     return st, VoronoiStats(
         iterations=it,
@@ -286,7 +292,10 @@ def voronoi_cells_pallas_frontier(
     rlx = torch.zeros((), dtype=torch.float32, device=dev)
     msg = torch.zeros((), dtype=torch.float32, device=dev)
     it = 0
-    while it < cap and bool(pull.any() | exp.any()):  # the round's one host sync
+    while it < cap:
+        obs.host_read()
+        if not bool(pull.any() | exp.any()):  # the round's one host sync
+            break
         # --- priority: pull at the marker's distance, expand at its own
         p = torch.minimum(torch.where(pull, prio, INF),
                           torch.where(exp, st.dist[row2v], INF))
@@ -382,6 +391,7 @@ def voronoi_cells_pallas_frontier_lanes(
     it = torch.zeros(B, dtype=torch.int32, device=dev)
     active = (pull.any(dim=1) | exp.any(dim=1)) & (cap > 0)
     lanes = active.nonzero().squeeze(1)  # the round's one host sync
+    obs.host_read()
     rounds = 0
     while lanes.numel():
         A = lanes.numel()
@@ -431,6 +441,7 @@ def voronoi_cells_pallas_frontier_lanes(
         rounds += 1
         active &= (pull.any(dim=1) | exp.any(dim=1)) & (rounds < cap)
         lanes = active.nonzero().squeeze(1)  # the round's one host sync
+        obs.host_read()
     return st, VoronoiStats(
         iterations=it,
         relaxations=rlx,

@@ -14,9 +14,25 @@ Two recording styles coexist:
 
 Retroactive spans serve where a context manager cannot sit: the serve
 engine's queue wait (it starts at submit() and is known to have ended only
-at flush()) and the per-round telemetry of a solve (its rounds run without
-a host clock; their timestamps are synthesized afterwards and flagged
-``synthetic_timing`` in the event args).
+at flush()) and the per-round telemetry of a solve (stamped at each round's
+host read in the kernel schedules, synthesized afterwards and flagged
+``synthetic_timing`` in the others).
+
+**The clock.**  Callers stamp with ``time.perf_counter()`` (the host's
+``CLOCK_MONOTONIC``); ``ts`` is written on the Unix epoch, in microseconds,
+the clock ``torch.profiler`` gives its events (``start_ns()``, CPU and
+device activity alike).  So ``ts * 1e3`` lies on a profiler trace's
+nanosecond axis with no other event to align by.  The offset between the
+two clocks is read as a pair, a ``time.time_ns()`` between two
+``perf_counter_ns()`` reads, when the tracer is made and again at each
+:meth:`Tracer.sync_clock` (``obs.enable()``); its error is half the gap
+between the two reads, well under a microsecond.  How far the clocks drift
+apart over a window: NTP slews ``CLOCK_MONOTONIC`` and ``CLOCK_REALTIME``
+alike (one frequency correction, at most 500 ppm, moves both), so they keep
+their offset while the time is only slewed, over a 51-s window as over any
+other.  Only a step of the realtime clock (``settimeofday``, an NTP step
+past its 128-ms threshold, a leap second applied as a step) moves it, by
+the step, for every span after it until the next re-read.
 
 A span's clock is the host's: it never synchronizes the device, so a span
 around queued device work measures the host's enqueue unless the block
@@ -27,6 +43,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import itertools
 import json
 import os
 import sys
@@ -59,13 +76,27 @@ class Tracer:
     def __init__(self, process_name: str = "repro_torch") -> None:
         self._events: List[Dict[str, Any]] = []
         self._lock = threading.Lock()
-        self._t0 = time.perf_counter()
+        self.sync_clock()
         self._process_name = process_name
         self._open: Dict[object, tuple] = {}
+        self._requests = itertools.count()
         _LIVE_TRACERS.add(self)
 
+    def sync_clock(self) -> None:
+        """Re-reads the offset of ``time.perf_counter()`` from the Unix
+        epoch, which ``ts`` is written on (see the module's docstring)."""
+        a = time.perf_counter_ns()
+        unix = time.time_ns()
+        b = time.perf_counter_ns()
+        self._epoch_us = unix / 1e3 - (a + b) / 2e3
+
     def _us(self, t: float) -> float:
-        return (t - self._t0) * 1e6
+        """A ``perf_counter`` stamp as Unix-epoch microseconds."""
+        return t * 1e6 + self._epoch_us
+
+    def next_request(self) -> int:
+        """A new request id: 0, 1, 2, ... for the tracer's life."""
+        return next(self._requests)
 
     @contextlib.contextmanager
     def span(self, name: str, tid: int = 0, **args):

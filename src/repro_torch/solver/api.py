@@ -20,8 +20,9 @@ CUDA device present the default raises instead of running on the CPU.
 
 With :mod:`repro_torch.obs` enabled, ``prepare``, ``refresh`` and ``solve``
 record spans, ``solve`` its seconds and messages and its per-round
-telemetry (as the reference's); with obs off, ``solve`` takes the same path
-as if obs did not exist.
+telemetry (as the reference's), and a solve is a request (``req``) with its
+host reads counted and its child spans, which the reference has not; with
+obs off, ``solve`` takes the same path as if obs did not exist.
 """
 
 from __future__ import annotations
@@ -141,11 +142,13 @@ class PreparedGraph:
             return self._backend.solve(self.config, self._artifacts, seeds, num_seeds, **kw)
         # The backend's solve ends in one fetch of its totals and counters
         # to the host, so the span covers the device's work with no sync
-        # of its own.
+        # of its own.  It opens a request: its child spans and the host
+        # reads counted inside it carry its id.
         cfg = self.config
         labels = {"backend": self.backend, "mode": cfg.mode}
         t0 = obs.now()
-        with obs.span("solve", backend=self.backend, mode=cfg.mode, num_seeds=num_seeds):
+        with obs.request("solve", backend=self.backend, mode=cfg.mode,
+                         num_seeds=num_seeds) as req:
             out = self._backend.solve(cfg, self._artifacts, seeds, num_seeds, **kw)
         t1 = obs.now()
         hist = obs.histogram(
@@ -164,6 +167,7 @@ class PreparedGraph:
             obs.emit_round_telemetry(
                 out.telemetry.per_round, t0, t1, label=f"{self.backend}/{cfg.mode}",
                 per_rank=out.telemetry.per_rank,
+                round_stamps=None if req is None else req.round_stamps,
             )
         return out
 

@@ -2,7 +2,7 @@
 
   "single"  one query on one device, every Voronoi schedule of the
             reference: "dense" and "bucket" over the COO graph
-            (:func:`repro_torch.core.steiner.run_pipeline`), "frontier"
+            (:func:`~repro_torch.core.voronoi.voronoi_cells`), "frontier"
             over the ELL view (:func:`~repro_torch.core.voronoi.voronoi_cells_frontier`),
             and "pallas", the min-plus kernel schedule
             (:func:`repro_torch.kernels.minplus.ops.voronoi_cells_pallas`, or
@@ -42,6 +42,12 @@ and returns the same answer.  A mesh of one position needs no setup.
 With :mod:`repro_torch.obs` on, ``prepare`` records the reference's
 sub-spans: "prepare:materialize" and "prepare:ell_build" (single, batch),
 "prepare:partition" or "prepare:shard_load", then "prepare:place" (mesh).
+A single or batch solve records two child spans of its ``solve`` request,
+which the reference has not: "solve:voronoi", the fixpoint loop, which
+ends at its last round's host read, and "solve:tail", the distance graph,
+the MST ("solve:mst" inside it) and the tree, which ends at the marking's
+last host read; a batch's tail is one span around its lanes, with
+``lanes``.  The mesh backends' pipeline records neither.
 """
 
 from __future__ import annotations
@@ -201,26 +207,28 @@ class SingleBackend(_Backend):
         seeds = torch.as_tensor(seeds, dtype=torch.int32, device=g.device)
         if init is not None:
             init = vmod.VoronoiState(*(t.to(g.device) for t in (init.dist, init.lab, init.pred)))
-        if cfg.mode in ("dense", "bucket"):
-            return smod.run_pipeline(
-                g, seeds, num_seeds=num_seeds, mode=cfg.mode, mst_algo=cfg.mst_algo,
-                delta=cfg.delta, max_iters=cfg.max_iters,
-                telemetry_rounds=cfg.telemetry_rounds, init=init,
-            )
-        if ell is None:
+        if cfg.mode not in ("dense", "bucket") and ell is None:
             ell = ell_view_cached(g, cfg.ell_width)
-        if cfg.mode == "frontier":
-            st, stats = vmod.voronoi_cells_frontier(
-                ell, seeds, frontier_size=cfg.frontier_size, max_rounds=cfg.max_iters,
-                telemetry_rounds=cfg.telemetry_rounds, init=init,
-            )
-        elif cfg.pallas_frontier:
-            st, stats = kops.voronoi_cells_pallas_frontier(ell, seeds, **_pallas_kw(cfg))
-        else:
-            if layout is None:
-                layout = _resident_layout(ell, cfg)
-            st, stats = kops.voronoi_cells_pallas(ell, seeds, layout=layout, **_pallas_kw(cfg))
-        return smod.finish_pipeline(g, st, stats, num_seeds, cfg.mst_algo)
+        with obs.child("solve:voronoi", "solve"):
+            if cfg.mode in ("dense", "bucket"):
+                st, stats = vmod.voronoi_cells(
+                    g, seeds, mode=cfg.mode, delta=cfg.delta, max_iters=cfg.max_iters,
+                    telemetry_rounds=cfg.telemetry_rounds, init=init,
+                )
+            elif cfg.mode == "frontier":
+                st, stats = vmod.voronoi_cells_frontier(
+                    ell, seeds, frontier_size=cfg.frontier_size, max_rounds=cfg.max_iters,
+                    telemetry_rounds=cfg.telemetry_rounds, init=init,
+                )
+            elif cfg.pallas_frontier:
+                st, stats = kops.voronoi_cells_pallas_frontier(ell, seeds, **_pallas_kw(cfg))
+            else:
+                if layout is None:
+                    layout = _resident_layout(ell, cfg)
+                st, stats = kops.voronoi_cells_pallas(ell, seeds, layout=layout,
+                                                      **_pallas_kw(cfg))
+        with obs.child("solve:tail", "solve"):
+            return smod.finish_pipeline(g, st, stats, num_seeds, cfg.mst_algo)
 
 
 @register_backend("batch")
@@ -275,30 +283,35 @@ class BatchBackend(_Backend):
         seeds = torch.as_tensor(seeds, dtype=torch.int32, device=g.device)
         if seeds.dim() != 2:
             raise ValueError(f"seeds must be (B, S), got shape {tuple(seeds.shape)}")
+        B = seeds.shape[0]
         if cfg.mode in ("dense", "bucket"):
-            return _stack([
-                smod.run_pipeline(
-                    g, row, num_seeds=num_seeds, mode=cfg.mode, mst_algo=cfg.mst_algo,
-                    delta=cfg.delta, max_iters=cfg.max_iters,
-                    telemetry_rounds=cfg.telemetry_rounds,
-                ) for row in seeds
-            ])
+            with obs.child("solve:voronoi", "solve"):
+                cells = [vmod.voronoi_cells(
+                    g, row, mode=cfg.mode, delta=cfg.delta, max_iters=cfg.max_iters,
+                    telemetry_rounds=cfg.telemetry_rounds) for row in seeds]
+            with obs.child("solve:tail", "solve", lanes=B):
+                return _stack([smod.finish_pipeline(g, st, stats, num_seeds, cfg.mst_algo)
+                               for st, stats in cells])
         if ell is None:
             ell = ell_view_cached(g, cfg.ell_width)
-        if cfg.pallas_frontier:
-            st, stats = kops.voronoi_cells_pallas_frontier_lanes(ell, seeds, **_pallas_kw(cfg))
-        else:
-            st, stats = kops.voronoi_cells_pallas_lanes(
-                ell, seeds, layout=_resident_layout(ell, cfg, seeds.shape[0]), **_pallas_kw(cfg))
+        with obs.child("solve:voronoi", "solve"):
+            if cfg.pallas_frontier:
+                st, stats = kops.voronoi_cells_pallas_frontier_lanes(ell, seeds,
+                                                                     **_pallas_kw(cfg))
+            else:
+                st, stats = kops.voronoi_cells_pallas_lanes(
+                    ell, seeds, layout=_resident_layout(ell, cfg, B), **_pallas_kw(cfg))
         lanes = []
-        for b in range(seeds.shape[0]):
-            lane_st = vmod.VoronoiState(dist=st.dist[b], lab=st.lab[b], pred=st.pred[b])
-            lane_stats = vmod.VoronoiStats(
-                iterations=stats.iterations[b], relaxations=stats.relaxations[b],
-                messages=stats.messages[b],
-                history=None if stats.history is None else stats.history[b],
-            )
-            lanes.append(smod.finish_pipeline(g, lane_st, lane_stats, num_seeds, cfg.mst_algo))
+        with obs.child("solve:tail", "solve", lanes=B):
+            for b in range(B):
+                lane_st = vmod.VoronoiState(dist=st.dist[b], lab=st.lab[b], pred=st.pred[b])
+                lane_stats = vmod.VoronoiStats(
+                    iterations=stats.iterations[b], relaxations=stats.relaxations[b],
+                    messages=stats.messages[b],
+                    history=None if stats.history is None else stats.history[b],
+                )
+                lanes.append(smod.finish_pipeline(g, lane_st, lane_stats, num_seeds,
+                                                  cfg.mst_algo))
         return smod.SteinerResult(
             tree=_stack([r.tree for r in lanes]),
             state=st,

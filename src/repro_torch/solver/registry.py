@@ -14,6 +14,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 _REGISTRY: Dict[str, Any] = {}
 
 
@@ -60,6 +62,7 @@ def to_host(*xs):
     if not ts:
         return list(xs)
     flat = torch.cat([t.reshape(-1).to(torch.float64) for t in ts]).cpu().numpy()
+    obs.host_read()
     out, off = [], 0
     for x in xs:
         if isinstance(x, torch.Tensor):

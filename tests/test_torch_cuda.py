@@ -750,6 +750,40 @@ def test_traced_pallas_solve_on_card_equals_untraced(cuda, traced):
         on.telemetry.messages
 
 
+def test_span_holds_its_kernels_on_the_device_clock(cuda, traced):
+    """Two spans 20 ms apart, each launching a kernel and synchronizing:
+    on the device trace's clock (torch.profiler's ``start_ns``), each
+    span's kernels run inside that span's ``ts`` to ``ts + dur`` mapped to
+    nanoseconds, so a span and the device work it waited for line up with
+    no other event to align by."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.ones(1 << 22, device=cuda)
+    (x * 2).sum()
+    torch.cuda.synchronize()
+    traced.enable()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for name in ("first", "second"):
+            with traced.span(name):
+                y = (x * 3).sum()
+                torch.cuda.synchronize()
+            time.sleep(0.02)
+    assert y.item() == 3 * (1 << 22)
+    kernels = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA)
+    spans = sorted((e["ts"] * 1e3, (e["ts"] + e["dur"]) * 1e3)
+                   for e in traced.tracer().events() if e["name"] in ("first", "second"))
+    assert len(spans) == 2 and len(kernels) >= 2
+    for lo, hi in spans:
+        inside = [k for k in kernels if lo <= k[0] and k[1] <= hi]
+        assert inside, (lo, hi, kernels)
+    assert all(any(lo <= k[0] and k[1] <= hi for lo, hi in spans) for k in kernels), \
+        (spans, kernels)
+
+
 def test_traced_served_batch_on_card_equals_untraced(cuda, traced):
     """Scale 10, a batch of distinct keys through a pallas server, untraced
     then traced: the same answers with as many lane-kernel launches, and the

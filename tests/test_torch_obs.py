@@ -9,6 +9,8 @@ Tolerance: exact everywhere.  Timestamps, durations and the samples that
 hold seconds are the only fields left out of a comparison (``_events``,
 ``_untimed``); path-valued span args (``store``, ``out``) are compared by
 their last component, since each package writes its own copy of a store.
+What only the port records (``PORT_ONLY``) is dropped from both sides
+before the comparison; ``test_torch_obs_solve.py`` tests it.
 """
 
 import collections
@@ -52,12 +54,30 @@ def _arg(k, v):
     return os.path.basename(v) if k in ("store", "out") else v
 
 
+# Span names and arg keys the port records and the reference does not: the
+# solve's child spans, the request id and host-read tally of its ``solve``
+# span, and ``synthetic_timing`` on the round spans of mode "pallas" (the
+# port stamps the resident schedule's rounds at their host reads).
+PORT_ONLY = ("solve:voronoi", "solve:tail", "solve:mst", "req", "host_reads",
+             "synthetic_timing")
+
+
+def _port_only(name, key):
+    if key == "synthetic_timing":
+        return name.startswith("round[") and name.endswith("/pallas]")
+    return key in PORT_ONLY
+
+
 def _events(tracer):
     """A tracer's events as a multiset of (name, ph, tid, args), without
-    ``ts`` and ``dur`` (the process-name metadata is not among them)."""
+    ``ts`` and ``dur`` (the process-name metadata is not among them), and
+    without the spans and args in ``PORT_ONLY``."""
     out = collections.Counter()
     for e in tracer.events():
-        args = {k: _arg(k, v) for k, v in e.get("args", {}).items()}
+        if e["name"] in PORT_ONLY:
+            continue
+        args = {k: _arg(k, v) for k, v in e.get("args", {}).items()
+                if not _port_only(e["name"], k)}
         out[(e["name"], e["ph"], e["tid"], json.dumps(args, sort_keys=True))] += 1
     return out
 
@@ -257,7 +277,8 @@ def _seeds(backend, seeds):
 @pytest.mark.parametrize("backend,mode", OBS_SPECS)
 def test_obs_on_is_bit_identical(backend, mode):
     """The same handle solves with obs off and on: state, tree, counters and
-    per-round rows bit for bit, and the solve is recorded."""
+    per-round rows bit for bit, and the solve is recorded, with the port's
+    own child spans on the single and batch backends."""
     src, dst, w, n, seeds = instance(1)
     _, g = both_graphs(src, dst, w, n)
     cfg = SolverConfig(backend=backend, mode=mode, mesh_shape=(1, 1))
@@ -269,6 +290,8 @@ def test_obs_on_is_bit_identical(backend, mode):
     assert_same_output(off, on)
     names = {e["name"] for e in tobs.tracer().events()}
     assert {"solve", f"round[{backend}/{mode}]", f"convergence[{backend}/{mode}]"} <= names
+    children = {"solve:voronoi", "solve:tail", "solve:mst"}
+    assert children & names == (set() if backend.startswith("mesh") else children)
     samples = tobs.parse_prometheus(tobs.prometheus_text())
     key = f'solver_messages_total{{backend="{backend}",mode="{mode}"}}'
     assert samples[key] == on.telemetry.messages
@@ -306,7 +329,7 @@ def test_solve_trace_equals_reference(kw, tmp_path):
     assert _untimed(tobs.prometheus_text()) == _untimed(jobs.prometheus_text())
     path = tmp_path / "trace.json"
     assert tobs.export_chrome_trace(str(path))
-    assert tobs.validate_chrome_trace(json.loads(path.read_text())) == sum(got.values())
+    assert tobs.validate_chrome_trace(json.loads(path.read_text())) == len(tobs.tracer())
 
 
 # ----------------------------------------------------------------------------
