@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only-dryrun  # phase 14 alone
     python3 chip_smoke.py --scale 18 --only-analysis  # phases 1 and 15 alone
     python3 chip_smoke.py --only-gate    # phases 1 and 16 alone
+    python3 chip_smoke.py --only-prim    # phases 1, 2's Prim check, Prim's times by cluster size
 
 Phases (any failure raises and the script exits non-zero, printing no
 result):
@@ -29,7 +30,9 @@ result):
    source block a slice (one launch a slice), against the plain fold over
    the same layout as well; the segment min over the sweep shapes, all
    padding, a tie-heavy case and one large shape, (NB, EB, vb) = (8192,
-   2048, 256), through its public wrapper;
+   2048, 256), through its public wrapper; Prim's one-launch kernel
+   against its plain loop (core.mst.prim_loop) on the tables of
+   tests/_prim_inputs.py at S in PRIM_CHECKED, one block and clusters;
 3. the fixed answers of the RMAT scale-10 workload (547.0 / 44 edges and
    each schedule's rounds, relaxations and messages, SCALE10_ANSWERS)
    through SteinerSolver(SolverConfig(backend="single", mode=...)) on the
@@ -256,7 +259,11 @@ result):
    exit code printed (not gated); then run_bench(["steiner"], k=3,
    quick=True) in this process with the resident kernel's launches counted
    (= rounds x 4 pallas solves);
-17. a line of launches by path, then one JSON line with each kernel's
+17. Prim's kernel timed alone (CUDA events over 20 launches) beside its
+   plain loop at the paper's |S| = 1024 and clw_10k's 10,240, held equal
+   to it there (with --only-prim also at every cluster size its entry
+   point takes over PRIM_SWEEP, the sizes behind kernels/mst/prim.py's
+   BLOCK_MAX rule); then a line of launches by path, then one JSON line with each kernel's
    launches on its paths (the top-K ones of phase 9 and the gate's
    included), its error and mismatches against the plain version, and its
    time beside its bound and the plain version's time;
@@ -482,9 +489,9 @@ TIMED_STATS = ("qps", "latency_p50_ms", "latency_p99_ms", "fresh_p50_ms", "fresh
                "cached_p50_ms", "cached_p99_ms")
 
 
-def ptxas_lines(log_text):
-    """One line per min-plus kernel from nvcc's ``-Xptxas -v`` output: its
-    (demangled) name, registers and shared memory, and spills."""
+def ptxas_lines(log_text, match="minplus"):
+    """One line per kernel named with ``match`` from nvcc's ``-Xptxas -v``
+    output: its (demangled) name, registers and shared memory, and spills."""
     import re
     import shutil
 
@@ -498,7 +505,7 @@ def ptxas_lines(log_text):
             cur["spill"] = line.strip()
         elif cur is not None and "Used" in line:
             cur["used"] = line.split(":", 1)[1].strip()
-    entries = [e for e in entries if "minplus" in e["entry"]]
+    entries = [e for e in entries if match in e["entry"]]
     if entries and shutil.which("c++filt"):
         names = subprocess.run(["c++filt"], input="\n".join(e["entry"] for e in entries),
                                capture_output=True, text=True, timeout=60).stdout.split("\n")
@@ -725,6 +732,73 @@ def phase2_segmin(dev, tally):
     launches = kseg.segmin_bucketed_call.launches
     t_seg.compare(got, segmin_bucketed_torch(*big, VB), f"segmin {SEGMIN_PATH_SHAPE}")
     return big, launches
+
+
+# Prim's kernel against its plain loop: the sizes checked in phase 2 (one
+# block and clusters, ragged slices), those timed beside the loop (the
+# paper's |S| and clw_10k's), and those of the sweep over cluster sizes.
+PRIM_CHECKED = (1, 2, 33, 1025, 4096, 5000, 10240, 12289)
+PRIM_TIMED = (1024, 10240)
+PRIM_SWEEP = (1024, 2048, 4096, 6144, 8192, 10240, 16384)
+
+
+def prim_card_table(S, kind, dev):
+    """tests/_prim_inputs.py's (S, S) table of ``kind`` on the card."""
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from _prim_inputs import prim_table
+
+    return torch.from_numpy(prim_table(S, kind, seed=S)).to(dev)
+
+
+def phase2_prim(dev, tally):
+    """Prim's kernel against its plain loop on the card, every kind of
+    tests/_prim_inputs.py at each S of PRIM_CHECKED."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from _prim_inputs import PRIM_KINDS
+    from repro_torch.core.mst import prim_loop
+    from repro_torch.kernels.mst import prim as kprim
+
+    for S in PRIM_CHECKED:
+        for kind in PRIM_KINDS:
+            w = prim_card_table(S, kind, dev)
+            tally["prim_call"].compare((kprim.prim_call(w),), (prim_loop(w),),
+                                       f"prim {kind} S={S}")
+
+
+def prim_times(dev, tally, sweep=False):
+    """ms of Prim's kernel (CUDA events over 20 launches) on the tie-heavy
+    table at each S of PRIM_TIMED, the wrapper's own cluster size, beside
+    the plain loop's (2 calls), the kernel held equal to it; with ``sweep``
+    also at each S of PRIM_SWEEP and each cluster size the entry point
+    takes there.  ``bound_ms`` is the S*S*4 bytes read once at 3.35 TB/s;
+    the step chain, S - 1 dependent steps, is what bounds it in fact."""
+    from repro_torch.core.mst import prim_loop
+    from repro_torch.kernels.mst import prim as kprim
+
+    res = {}
+    for S in sorted(set(PRIM_TIMED) | (set(PRIM_SWEEP) if sweep else set())):
+        w = prim_card_table(S, "ties", dev)
+        row = dict(shape=[S, S], blocks=kprim.cluster_blocks(S),
+                   bound_ms=S * S * 4 / HBM_BYTES_PER_S * 1e3)
+        if sweep:
+            row["blocks_ms"] = {b: event_ms(lambda: kprim._launch(w, b), 20)
+                                for b in (1, 2, 4, 8, 12, 16)
+                                if -(-S // b) <= kprim.BLOCK_MAX}
+        if S in PRIM_TIMED:
+            tally["prim_call"].compare((kprim.prim_call(w),), (prim_loop(w),),
+                                       f"prim timed S={S}")
+            row.update(ms=event_ms(lambda: kprim.prim_call(w), 20),
+                       plain_ms=event_ms(lambda: prim_loop(w), 2))
+        log(f"prim S={S}: the wrapper's {row['blocks']} block(s)"
+            + (f": {row['ms']:.3f} ms, plain loop {row['plain_ms']:.1f} ms"
+               if "ms" in row else "")
+            + (f"; ms by blocks {json.dumps(row['blocks_ms'])}" if sweep else "")
+            + f"; bytes bound {row['bound_ms']:.4f} ms")
+        res[S] = row
+        del w
+    return res
 
 
 # The scale-10 answers of every single-device schedule: (total distance, edges,
@@ -1215,6 +1289,7 @@ def phase6_full_width(dev, scale, n_seeds, tally):
     from repro_torch.kernels.minplus import minplus as kmod
     from repro_torch.kernels.minplus import ops as kops
     from repro_torch.kernels.minplus.ref import minplus_torch
+    from repro_torch.kernels.mst import prim as kprim
     from repro_torch.solver import SolverConfig, SteinerSolver
 
     rec = {"scale": scale, "seeds": n_seeds}
@@ -1240,10 +1315,14 @@ def phase6_full_width(dev, scale, n_seeds, tally):
 
     kmod.minplus_call.launches = kmod.minplus_blocked_call.launches = 0
     kmod.pack_records.launches = 0
+    kprim.prim_call.launches = 0
     solves = []
     for i in range(4):
         out, secs = timed(h.solve, seeds)
         solves.append((out, secs))
+    rec["prim_launches"] = kprim.prim_call.launches
+    if rec["prim_launches"] != 4:
+        raise AssertionError(f"4 solves made {rec['prim_launches']} Prim launches, not one each")
     launches = (kmod.minplus_call.launches, kmod.minplus_blocked_call.launches)
     iters = [o.telemetry.iterations for o, _ in solves]
     if launches != (sum(iters), 0) or kmod.pack_records.launches != sum(iters):
@@ -4600,6 +4679,9 @@ def main(argv=None) -> int:
                     "no result line")
     ap.add_argument("--only-kg", action="store_true",
                     help="a rehearsal of phase 10c: phases 1, 2, 6 and 10c only, no result line")
+    ap.add_argument("--only-prim", action="store_true",
+                    help="Prim's kernel alone: phases 1, 2's Prim check and Prim's times "
+                    "(phase 17), no result line")
     ap.add_argument("--only-analysis", action="store_true",
                     help="a rehearsal of phase 15 on an RMAT of --scale (phases 1 and 15), "
                     "no result line")
@@ -4640,18 +4722,30 @@ def main(argv=None) -> int:
             Path(args.json).parent.mkdir(parents=True, exist_ok=True)
             Path(args.json).write_text(json.dumps({"device": smi, "gate": gate_rec}, indent=1))
         return 0
-    ptxas = ptxas_lines(_build.build_log("minplus"))
+    ptxas = ptxas_lines(_build.build_log("minplus")) + ptxas_lines(_build.build_log("mst"),
+                                                                    "prim")
     for line in ptxas or ["no nvcc log (the library was built before this run)"]:
         log(f"phase 1: ptxas {line}")
 
     names = ("minplus_call", "minplus_call (lanes)", "minplus_blocked_call",
-             "minplus_blocked_call (lanes)", "segmin_bucketed_call")
+             "minplus_blocked_call (lanes)", "segmin_bucketed_call", "prim_call")
     tally = {k: Tally() for k in names}
+    if args.only_prim:
+        phase2_prim(dev, tally)
+        log(f"phase 2: prim_call equals the plain loop in {tally['prim_call'].cases} cases")
+        prim_rec = prim_times(dev, tally, sweep=True)
+        log(f"script {time.perf_counter() - t_start:.1f} s after the imports")
+        if args.json:
+            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json).write_text(json.dumps({"device": smi, "ptxas": ptxas,
+                                                   "prim": prim_rec}, indent=1))
+        return 0
     # ---- phase 2
     t0 = time.perf_counter()
     phase2_kernels(dev, tally)
     phase2_lanes(dev, tally)
     seg_in, seg_launches = phase2_segmin(dev, tally)
+    phase2_prim(dev, tally)
     log("phase 2: kernels equal the plain version in "
         + ", ".join(f"{k} {t.cases}" for k, t in tally.items())
         + f" cases ({time.perf_counter() - t0:.1f} s)")
@@ -4762,6 +4856,8 @@ def main(argv=None) -> int:
     done("10c")
     times = kernel_times(dev, h.artifact("ell"), st, {"full": hb, "scale16": blocked16},
                          lanes_in, seg_in, tally)
+    prim_rec = prim_times(dev, tally)
+    times["prim_call"] = dict(prim_rec[1024], by_size=prim_rec)
     done("kernel times")
     log(f"kernel times: {json.dumps(times)}")
     log("tolerance: exact (every output of every kernel equals the plain version's; "
@@ -4813,7 +4909,8 @@ def main(argv=None) -> int:
                "minplus_call (lanes, sanitized batch, phase 15)":
                    analysis_rec["launches"]["lanes"],
                "minplus_call (perf gate's steiner group, pallas, phase 16)":
-                   gate_rec["launches"]}
+                   gate_rec["launches"],
+               "prim_call (pallas, phase 6)": rec["prim_launches"]}
     log(f"launches by path: {json.dumps(by_path)}")
     launches = {"minplus_call": rec["launches_per_solve"] * 4
                 + sched_launches["minplus_call (pallas_frontier)"]
@@ -4827,15 +4924,19 @@ def main(argv=None) -> int:
                 "minplus_blocked_call": blocked_launches
                 + sched_launches["minplus_blocked_call (pallas_frontier)"],
                 "minplus_blocked_call (lanes)": blocked_lane_launches,
-                "segmin_bucketed_call": seg_launches}
+                "segmin_bucketed_call": seg_launches,
+                "prim_call": rec["prim_launches"]}
     minplus_src = "src/repro_torch/kernels/minplus/csrc/minplus.cu"
     sources = {name: minplus_src for name in names}
     sources["segmin_bucketed_call"] = "src/repro_torch/kernels/segmin/csrc/segmin.cu"
+    sources["prim_call"] = "src/repro_torch/kernels/mst/csrc/prim.cu"
     replaces = {"minplus_call": "src/repro/kernels/minplus/minplus.py:77",
                 "minplus_call (lanes)": "src/repro/kernels/minplus/minplus.py:77",
                 "minplus_blocked_call": "src/repro/kernels/minplus/minplus.py:159",
                 "minplus_blocked_call (lanes)": "src/repro/kernels/minplus/minplus.py:159",
-                "segmin_bucketed_call": "src/repro/kernels/segmin/segmin.py:66"}
+                "segmin_bucketed_call": "src/repro/kernels/segmin/segmin.py:66",
+                "prim_call": "none (src/repro/core/mst.py:22, prim_dense, is a "
+                             "lax.fori_loop: one XLA while loop)"}
     kernels = []
     for name in names:
         kt = times[name]
@@ -4846,7 +4947,8 @@ def main(argv=None) -> int:
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": tally[name].max_abs_err, "mismatches": tally[name].mismatches,
             "ms": kt["ms"], "plain_ms": kt["plain_ms"], "bound_ms": kt["bound_ms"],
-            "bound_by": "bytes", "library_ms": None, "shape": kt["shape"],
+            "bound_by": "bytes",
+            "library_ms": None, "shape": kt["shape"],
         })
     total_s = time.perf_counter() - t_start
     log(f"script {total_s:.1f} s after the imports; by phase {json.dumps(seconds)}")

@@ -1,7 +1,8 @@
 """Minimum spanning tree of the distance graph G'1 (paper Alg. 2 Step 3).
 
-:func:`prim_dense` is Prim's algorithm over the dense (S, S) pair matrix,
-one vectorised step a vertex; :func:`boruvka_dense` is Borůvka's, O(log S)
+:func:`prim_dense` is Prim's algorithm over the dense (S, S) pair matrix:
+on the card one kernel launch for every step, on the CPU one vectorised
+step a vertex; :func:`boruvka_dense` is Borůvka's, O(log S)
 rounds of component minima and pointer jumping, as in ``repro.core.mst``.
 Both return a parent array over seed indices with ``parent[root] == root``.
 """
@@ -12,6 +13,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.graph import segment_min
+from repro_torch.kernels.mst.prim import prim_call
 
 INF = float("inf")
 IMAX = torch.iinfo(torch.int32).max
@@ -21,8 +23,22 @@ def prim_dense(wmat: torch.Tensor) -> torch.Tensor:
     """Prim's MST over a dense (S, S) weight matrix (+inf = non-edge).
 
     Returns parent: (S,) int32, parent[0] == 0 (root).  Vertices in other
-    components keep ``parent[v] == v``.  The S - 1 steps never sync with
-    the host: the picked vertex stays a device tensor.
+    components keep ``parent[v] == v``.  A CUDA tensor launches the kernel
+    (:func:`~repro_torch.kernels.mst.prim.prim_call`: all S - 1 steps in one
+    launch) or raises; a CPU tensor runs :func:`prim_loop`, the kernel's
+    plain version.  Neither syncs with the host.
+    """
+    if wmat.device.type != "cpu":
+        return prim_call(wmat)
+    return prim_loop(wmat)
+
+
+def prim_loop(wmat: torch.Tensor) -> torch.Tensor:
+    """Prim's MST as S - 1 vectorised steps, on any device: the plain
+    version of the kernel, equal to it bit for bit.
+
+    The steps never sync with the host: the picked vertex stays a device
+    tensor.
     """
     S = wmat.shape[0]
     dev = wmat.device

@@ -58,8 +58,9 @@ def finish_pipeline(
     if mst_algo not in ("prim", "boruvka"):
         raise ValueError(f"unknown mst_algo: {mst_algo!r}")
     dmat, umat, vmat = dgmod.distance_graph(g, st, S)
-    # Prim never syncs: the span times the host's launch of its S - 1
-    # steps, which is its wall time where the tail is launch-bound
+    # Prim never syncs: on the card the span times its one launch (the
+    # kernel's device time shows under its own name in a device trace); on
+    # the CPU it times the plain loop's S - 1 steps
     with obs.child("solve:mst", "solve:tail"):
         parent = mst_parent(dmat, S, mst_algo)
     tree = treemod.extract_tree(g.n, st, dmat, umat, vmat, parent, S)

@@ -8,6 +8,8 @@ minplus/  the min-plus ELL relaxation of the Voronoi loop: ``minplus_call``
           (B, N) batch of query lanes.
 segmin/   the bucketed lexicographic segment min ``segmin_bucketed_call``
           (``segmin/csrc/segmin.cu``); no solver path calls it yet.
+mst/      Prim's minimum spanning tree, every step in one launch:
+          ``prim_call`` (``mst/csrc/prim.cu``), the tail's MST on the card.
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version in ``ref.py``.  Sources are compiled with

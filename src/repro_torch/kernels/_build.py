@@ -4,12 +4,12 @@ Each kernel family has one source under ``<family>/csrc/`` with a plain C
 interface (no PyTorch headers), compiled for Hopper into a shared library:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/lib<family>-<hash>.so <family>/csrc/<family>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/lib<family>-<hash>.so <family>/csrc/<source>.cu
 
 The library name carries a hash of the source and the flags, so an edited
 source is rebuilt and never loaded stale.  Builds go to ``kernels/build/``
-beside this file (listed in ``.gitignore``) at first use; :func:`build_all`
-starts one nvcc per source at once.  No ``--use_fast_math``: the kernels'
+beside this file (listed in ``.gitignore``) at the first use of any;
+:func:`build_all` starts one nvcc per source at once.  No ``--use_fast_math``: the kernels'
 ``d + w`` must round exactly like the plain version's.
 
 nvcc runs with ``-Xptxas -v``; what it reports (registers, shared memory and
@@ -36,6 +36,7 @@ BUILD_DIR = KERNELS_DIR / "build"
 SOURCES = {
     "minplus": KERNELS_DIR / "minplus" / "csrc" / "minplus.cu",
     "segmin": KERNELS_DIR / "segmin" / "csrc" / "segmin.cu",
+    "mst": KERNELS_DIR / "mst" / "csrc" / "prim.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
@@ -108,10 +109,13 @@ def build_log(family: str) -> str:
 
 
 def library(family: str) -> ctypes.CDLL:
-    """The loaded library of ``family``, built first if needed."""
+    """The loaded library of ``family``; if it has none yet, every family
+    without one is built first, all at once, so a checkout's first run
+    pays one build and not one a family."""
     lib = _libs.get(family)
     if lib is None:
-        _finish(family, _start(family))
+        if not _lib_path(family).exists():
+            build_all()
         lib = ctypes.CDLL(str(_lib_path(family)))
         _libs[family] = lib
         count_build("library")

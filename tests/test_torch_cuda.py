@@ -13,12 +13,16 @@ import pytest
 import torch
 
 from _minplus_inputs import ell_inputs, lane_inputs, tie_inputs
+from _prim_inputs import PRIM_KINDS, prim_table
 from _segmin_inputs import segmin_inputs
+from repro_torch.core import mst as tmst
 from repro_torch.core.graph import from_edges
+from repro_torch.core.steiner import mst_parent
 from repro_torch.data.graphs import rmat_edges, select_seeds
 from repro_torch.kernels.minplus import minplus as tmp
 from repro_torch.kernels.minplus import ops as tops
 from repro_torch.kernels.minplus.ref import minplus_blocked_torch, minplus_torch
+from repro_torch.kernels.mst import prim as kprim
 from repro_torch.kernels.segmin import segmin as tseg
 from repro_torch.kernels.segmin.ops import segmin_bucketed
 from repro_torch.kernels.segmin.ref import segmin_bucketed_torch
@@ -97,14 +101,21 @@ def test_scale10_fixed_answers_on_card(cuda, src_block):
     seeds = select_seeds(n, src, dst, 16, strategy="uniform", seed=1000)
     g = from_edges(src, dst, w, n, pad_to=8, device=cuda)
     cfg = SolverConfig(backend="single", mode="pallas", src_block=src_block)
-    launches = (tmp.minplus_call.launches, tmp.minplus_blocked_call.launches)
+    launches = (tmp.minplus_call.launches, tmp.minplus_blocked_call.launches,
+                kprim.prim_call.launches)
     out = SteinerSolver(cfg).prepare(g).solve(seeds)
     t = out.telemetry
     assert (out.total_distance, out.num_edges) == (547.0, 44)
     assert (t.iterations, t.relaxations, t.messages) == (10, 2638, 45912)
     grew = (tmp.minplus_call.launches - launches[0],
-            tmp.minplus_blocked_call.launches - launches[1])
-    assert grew == ((10, 0) if src_block is None else (0, 10))
+            tmp.minplus_blocked_call.launches - launches[1],
+            kprim.prim_call.launches - launches[2])
+    assert grew == ((10, 0, 1) if src_block is None else (0, 10, 1))
+    # the solve's MST is the plain loop's over the same symmetrised pair table
+    wmat = torch.minimum(out.raw.dmat.view(16, 16), out.raw.dmat.view(16, 16).T)
+    wmat.fill_diagonal_(float("inf"))
+    assert torch.equal(out.raw.parent, tmst.prim_loop(wmat))
+    assert torch.equal(mst_parent(out.raw.dmat, 16, "prim"), out.raw.parent)
     st = out.raw.state
     new, upd = tops.relax_ell(SteinerSolver(cfg).prepare(g).artifact("ell"), st)
     assert not bool(upd.any())
@@ -234,6 +245,40 @@ def test_segmin_kernel_all_padding(cuda):
     assert torch.isinf(m).all() and (ml == IMAX).all() and (ms == IMAX).all()
 
 
+PRIM_SIZES = [1, 2, 8, 31, 32, 33, 1023, 1024, 1025, 4096, 10240]
+
+
+@pytest.mark.parametrize("kind", PRIM_KINDS)
+@pytest.mark.parametrize("S", PRIM_SIZES)
+def test_prim_kernel_matches_plain_loop(cuda, S, kind):
+    """One launch of the kernel gives the plain loop's parent bit for bit on
+    the same card tensor, across one block and a cluster of blocks."""
+    w = torch.from_numpy(prim_table(S, kind, seed=S)).to(cuda)
+    n0 = kprim.prim_call.launches
+    got = kprim.prim_call(w)
+    assert kprim.prim_call.launches == n0 + 1
+    torch.cuda.synchronize()
+    want = tmst.prim_loop(w)
+    assert got.dtype == torch.int32 and got.shape == (S,)
+    assert torch.equal(got, want)
+    assert torch.equal(tmst.prim_dense(w), want)
+    assert kprim.prim_call.launches == n0 + 2
+    if kind == "isolated_root":
+        assert torch.equal(got.cpu(), torch.arange(S, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 3, 8, 16])
+def test_prim_kernel_any_cluster_is_the_same(cuda, blocks):
+    """The block count moves rows between SMs, never the answer: every
+    count the entry point takes gives the loop's parent at S = 4096, in one
+    counted launch."""
+    w = torch.from_numpy(prim_table(4096, "components", seed=7)).to(cuda)
+    n0 = kprim.prim_call.launches
+    got = kprim._launch(w, blocks)
+    assert kprim.prim_call.launches == n0 + 1  # every launch is counted
+    assert torch.equal(got, tmst.prim_loop(w))
+
+
 @pytest.mark.parametrize("src_block", [None, 256])
 def test_batch_backend_on_card_matches_cpu(cuda, src_block):
     """Scale 10, a (6, 16) batch: the card's batch solve equals the CPU's bit
@@ -247,9 +292,12 @@ def test_batch_backend_on_card_matches_cpu(cuda, src_block):
     for d in (cuda, "cpu"):
         h = SteinerSolver(cfg, device=d).prepare(from_edges(src, dst, w, n, pad_to=8, device=d))
         kern = tmp.minplus_call if src_block is None else tmp.minplus_blocked_call
-        n0 = kern.lane_launches
+        n0, p0 = kern.lane_launches, kprim.prim_call.launches
         out[str(d)] = (h.solve(seeds), kern.lane_launches - n0, h)
+        out[str(d), "prim"] = kprim.prim_call.launches - p0
     (a, la, hc), (b, lb, _) = out[str(cuda)], out["cpu"]
+    # the lane tail: one Prim launch a lane on the card, none on the CPU
+    assert (out[str(cuda), "prim"], out["cpu", "prim"]) == (seeds.shape[0], 0)
     per_round = 1
     if src_block is not None:  # one launch a (lane group, source slice)
         layout = tops.ell_layout(hc.artifact("ell"), src_block, seeds.shape[0])
