@@ -4,9 +4,11 @@ the plain reference's, number by number, each against its limit.
 A solve's answer is every stage the program produced for it: the Voronoi
 state (dist, lab, pred of every vertex), the distance graph and its MST
 (the pair table and the parent array), and the tree (its vertices, path
-edges, bridges, total distance and edge count).  A served answer is what
-the server returns for a request: the total distance and the edge count.
-Answers are exact, so every limit is 0.
+edges, bridges, total distance and edge count).  A mesh solve returns no
+pair table and no parent: its bridge rows, which follow from both, hold
+them to the reference.  A served answer is what the server returns for a
+request: the total distance and the edge count.  Answers are exact, so
+every limit is 0.
 """
 
 from __future__ import annotations
@@ -20,19 +22,23 @@ BRIDGE = ("bridge_u", "bridge_v", "bridge_w", "bridge_valid")
 
 
 def solve_answer(raw) -> Dict[str, np.ndarray]:
-    """Host copy of what a single solve produced (a ``SteinerResult``), in
-    the reference's encoding."""
-    st, t = raw.state, raw.tree
-    out = {
-        "dist": st.dist, "lab": st.lab, "pred": st.pred, "dmat": raw.dmat,
-        "parent": raw.parent, "in_tree_vertex": t.in_tree_vertex, "path_edge": t.path_edge,
-        "bridge_u": t.bridge_u, "bridge_v": t.bridge_v, "bridge_w": t.bridge_w,
-        "bridge_valid": t.bridge_valid, "total_distance": t.total_distance,
-        "num_edges": t.num_edges,
-    }
-    out = {k: v.detach().cpu().numpy() for k, v in out.items()}
-    out["total_distance"] = float(out["total_distance"])
-    out["num_edges"] = int(out["num_edges"])
+    """Host copy of what a solve produced, in the reference's encoding: a
+    single solve's ``SteinerResult`` (tensors), or a mesh solve's
+    ``DistSteinerResult`` (host arrays; its ``marked`` is the tree's
+    vertices, and it has no ``dmat`` and no ``parent``)."""
+    if hasattr(raw, "marked"):
+        out = {k: getattr(raw, k) for k in ("dist", "lab", "pred", "path_edge") + BRIDGE}
+        out["in_tree_vertex"] = raw.marked
+    else:
+        st, t = raw.state, raw.tree
+        out = {"dist": st.dist, "lab": st.lab, "pred": st.pred, "dmat": raw.dmat,
+               "parent": raw.parent, "in_tree_vertex": t.in_tree_vertex,
+               "path_edge": t.path_edge, "bridge_u": t.bridge_u, "bridge_v": t.bridge_v,
+               "bridge_w": t.bridge_w, "bridge_valid": t.bridge_valid}
+        out = {k: v.detach().cpu().numpy() for k, v in out.items()}
+        raw = t
+    out["total_distance"] = float(raw.total_distance)
+    out["num_edges"] = int(raw.num_edges)
     return out
 
 
@@ -51,16 +57,20 @@ def _rows_differ(got: dict, ref: dict, keys) -> int:
 
 def compare_solve(got: dict, ref: dict) -> Dict[str, float]:
     """The numbers of one solve: vertices whose state differs, pair-table
-    and parent entries that differ, tree entries that differ (vertices,
-    path edges, bridge rows, the edge count) and the gap of the totals."""
+    and parent entries that differ (where the answer has them), tree
+    entries that differ (vertices, path edges, bridge rows, the edge count)
+    and the gap of the totals."""
     tree = (_rows_differ(got, ref, ("in_tree_vertex",)) + _rows_differ(got, ref, ("path_edge",))
             + _rows_differ(got, ref, BRIDGE) + int(got["num_edges"] != ref["num_edges"]))
-    return {
+    out = {
         "state_mismatch": _rows_differ(got, ref, STATE),
-        "graph_mismatch": _rows_differ(got, ref, ("dmat",)) + _rows_differ(got, ref, ("parent",)),
         "tree_mismatch": tree,
         "total_gap": abs(float(got["total_distance"]) - float(ref["total_distance"])),
     }
+    if "dmat" in got:
+        out["graph_mismatch"] = (_rows_differ(got, ref, ("dmat",))
+                                 + _rows_differ(got, ref, ("parent",)))
+    return out
 
 
 def compare_served(got: Tuple[float, int], ref: dict) -> Dict[str, float]:

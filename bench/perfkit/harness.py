@@ -13,15 +13,21 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import json
+import os
 import sys
 import time
+from datetime import timedelta
+from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from perfkit import check, graphgen, manifest, systems, traffic
 from perfkit.devtrace import Capture, DeviceTrace
+from perfkit.ranks import RESULT
 
 TRACE_SECONDS = 5.0  # the traced part of a --trace 1 window: whole queries or batches
 
@@ -35,6 +41,7 @@ class RunRecord:
     attempted: int = 0
     completed: int = 0
     rounds: List[int] = dataclasses.field(default_factory=list)  # a solve's relaxation rounds
+    messages: List[int] = dataclasses.field(default_factory=list)  # a mesh solve's messages
     spans: List[dict] = dataclasses.field(default_factory=list)  # the program's spans
     device: Optional[DeviceTrace] = None
     graph_n: int = 0
@@ -320,3 +327,226 @@ def result(man, cell, rec: RunRecord, ok, numbers, cfg, peak, trace, device) -> 
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
+
+
+# ----------------------------------------------------------------------------
+# a cell over ranks (perfkit.ranks launches them)
+# ----------------------------------------------------------------------------
+
+WORLD_TIMEOUT_S = 300  # a collective that waits longer raises
+
+
+def _die_with(launcher: int) -> None:
+    """Asks the kernel to kill this rank when its launcher dies
+    (``PR_SET_PDEATHSIG``), so that no rank outlives it."""
+    import ctypes
+    import signal
+
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG
+    if os.getppid() != launcher:  # it died before the call
+        os._exit(1)
+
+
+def rank_main(spec: dict, forbidden) -> int:
+    """One rank: its card, the world, the SPMD run; rank 0 writes the result
+    line to the launcher.  ``forbidden()`` names the JAX modules loaded,
+    which end the run with no result."""
+    _die_with(int(spec["launcher"]))
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    local = int(os.environ["LOCAL_RANK"])
+    t_start = float(spec["t_start"])
+    say = log if rank == 0 else (lambda *a: None)
+    say(f"set-up: rank 0 imported at {time.perf_counter() - t_start:.2f} s")
+    on_card = spec["device"] == "cuda"
+    if on_card:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < world:
+            log(f"no result: {spec['workload']} needs {world} CUDA device(s), "
+                f"this machine has {have}")
+            return 2
+        torch.cuda.set_device(local)  # before anything touches a card
+        torch.zeros(1, device="cuda")
+        say(f"set-up: rank 0 on its card at {time.perf_counter() - t_start:.2f} s")
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world) if on_card else 1)
+    dist.init_process_group("cuda:nccl,cpu:gloo" if on_card else "gloo",
+                            init_method=f"tcp://127.0.0.1:{int(spec['port'])}", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=WORLD_TIMEOUT_S))
+    if spec.get("hook"):
+        manifest.load_module(Path(spec["hook"]), "hook").plant(rank)
+    man = manifest.load_manifest()
+    cell = manifest.workload(man, spec["workload"])
+    out = run_rank(man, cell, int(spec["seed"]), float(spec["seconds"]), bool(spec["trace"]),
+                   spec["device"], t_start, spec.get("overrides"))
+    bad = forbidden()
+    if bad:
+        log(f"no result: rank {rank} loaded {', '.join(bad)}")
+        return 3
+    if out is not None:
+        res, lines = out
+        print(RESULT + json.dumps({"result": res, "lines": lines}), flush=True)
+    return 0
+
+
+def fingerprint(edges: graphgen.Edges) -> torch.Tensor:
+    """(4,) int64 sums of the edges, position-weighted, on the host: equal
+    on two ranks only where they made the same graph."""
+    i = torch.arange(edges.src.shape[0], device=edges.src.device, dtype=torch.int64)
+    s, d, w = edges.src.long(), edges.dst.long(), edges.w.long()
+    mix = (s * 0x9E3779B1) ^ (d * 0x85EBCA77) ^ (w << 40)
+    return torch.stack([(mix * (2 * i + 1)).sum(), s.sum(), d.sum(), w.sum()]).cpu()
+
+
+def same_graph(edges: graphgen.Edges) -> None:
+    """Raises unless every rank made the graph that rank 0 made."""
+    mine = fingerprint(edges)
+    every = [torch.zeros_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    differ = [r for r, f in enumerate(every) if not torch.equal(f, every[0])]
+    if differ:
+        raise RuntimeError(f"ranks {differ} made another graph than rank 0 from the same seed")
+
+
+def _broadcast(flag: torch.Tensor) -> None:
+    dist.broadcast(flag, src=0)  # a host tensor: gloo
+
+
+def lockstep_loop(system, stream, seconds, keep, rec: RunRecord, tw: TraceWindow, device,
+                  rank: int):
+    """The closed loop of every rank: the same queries, one at a time.
+    After each, rank 0 decides whether the window goes on and whether the
+    traced part ends, and broadcasts both.  Returns rank 0's {index:
+    (seeds, answer)} of the queries in ``keep`` and of the last."""
+    kept = {}
+    flag = torch.zeros(2, dtype=torch.int32)
+    decide_s = 0.0
+    tw.begin()
+    t0 = tw.t0
+    deadline = t0 + seconds
+    i, last = 0, None
+    while True:
+        q = next(stream)
+        out = system.call(q)
+        rec.rounds.append(system.rounds(out))
+        rec.messages.append(system.messages(out))
+        if rank == 0:
+            if i in keep:
+                kept[i] = (q, out)
+            last = (q, out)
+        i += 1
+        t = time.perf_counter()
+        if rank == 0:
+            flag[0] = int(t < deadline)
+            flag[1] = int(t - t0 >= TRACE_SECONDS)
+        _broadcast(flag)
+        decide_s += time.perf_counter() - t
+        if flag[1] and tw.capture is not None and tw.capture.running:
+            tw.capture.stop()
+        if not flag[0]:
+            break
+    _sync(device)
+    rec.window_s = time.perf_counter() - t0
+    tw.end()
+    rec.attempted = rec.completed = i
+    if rank == 0:
+        kept[i - 1] = last
+        log(f"lockstep: {i} decisions broadcast in {decide_s * 1e3:.1f} ms")
+    return kept
+
+
+def _max(value: float, dtype) -> float:
+    t = torch.tensor([value], dtype=dtype)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t.item()
+
+
+def _mean(value: float) -> float:
+    t = torch.tensor([value], dtype=torch.float64)
+    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    return t.item() / dist.get_world_size()
+
+
+def run_rank(man: dict, cell: dict, seed: int, seconds: float, trace: bool, device,
+             t_start: float, overrides: Optional[dict] = None):
+    """This rank's part of one run of ``cell``.  Returns rank 0's (result,
+    check lines); None on the other ranks."""
+    rank = dist.get_rank()
+    say = log if rank == 0 else (lambda *a: None)
+    cfg, spec = load_cell(man, cell, overrides)
+    on_card = torch.device(device).type == "cuda"
+    rec = RunRecord()
+
+    # --- set-up: the graph on every card, the program, the warm-up
+    say(f"set-up: {dist.get_world_size()} ranks joined at {time.perf_counter() - t_start:.2f} s")
+    edges = graphgen.rmat(cfg["graph"], seed, device)
+    same_graph(edges)
+    edges = edges.to("cpu")
+    rec.graph_n, rec.graph_edges = edges.n, edges.directed_edges
+    say(f"set-up: graph n={edges.n} E={edges.directed_edges} made and agreed at "
+        f"{time.perf_counter() - t_start:.2f} s")
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    # a host graph, as the port's knowledge-graph example gives it: prepare
+    # partitions it on the host and keeps this rank's shard on its card
+    graph = program_graph(cfg, edges, "cpu")
+    system = systems.build(cfg, graph, device)
+    del graph
+    say(f"set-up: program prepared at {time.perf_counter() - t_start:.2f} s")
+    warm_seed = int(traffic.rng_for(seed, traffic.WARMUP).integers(2**62))
+    t_warm = time.perf_counter()
+    system.warmup(next(traffic.query_stream(spec, edges.n, warm_seed)))
+    say(f"set-up: the warm-up query took {time.perf_counter() - t_warm:.2f} s")
+    capture = None
+    if trace:
+        from repro_torch import obs
+
+        if on_card:
+            Capture.warm()
+            capture = Capture()
+        if rank == 0:
+            obs.enable(trace=True)
+    tw = TraceWindow(capture)
+    _sync(device)
+    chk = spec["check"]
+    if spec["kind"] != "closed":
+        raise ValueError(f"a cell over ranks runs a closed mix, not {spec['kind']!r}")
+    stream = traffic.query_stream(spec, edges.n, seed)
+    keep = set(check.sample(int(chk["pool"]), int(chk["sample"]),
+                            traffic.rng_for(seed, traffic.SAMPLE)))
+    _broadcast(torch.zeros(2, dtype=torch.int32))  # every rank warm: the window opens
+    rec.setup_s = time.perf_counter() - t_start
+    say(f"set-up: warmed up at {rec.setup_s:.2f} s")
+
+    # --- the window
+    kept = lockstep_loop(system, stream, seconds, keep, rec, tw, device, rank)
+    if trace and rank == 0:
+        from repro_torch import obs
+
+        rec.spans = obs.tracer().events()
+        obs.disable()
+    rec.device = capture.trace if capture is not None else None
+    busy = _mean(rec.device.busy_s()) if rec.device is not None else None
+    if rec.device is not None:
+        say(f"trace: {len(rec.device.events)} device activities in {rec.device.window_s:.3f} s, "
+            f"read in {capture.stop_s:.2f} s; busy {busy:.3f} s, the mean of the ranks")
+    peak = int(_max(torch.cuda.max_memory_allocated() if on_card else 0, torch.int64))
+
+    # --- every rank frees its program; rank 0 compares
+    got = {i: (q, check.solve_answer(out.raw)) for i, (q, out) in kept.items()}
+    del kept, system
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    if rank != 0:
+        return None
+    t_ref = time.perf_counter()
+    say(f"window: {rec.completed} queries in {rec.window_s:.3f} s on every rank")
+    numbers = compare(cfg, edges, got, device)
+    say(f"reference: {len(got)} answers in {time.perf_counter() - t_ref:.2f} s")
+    numbers.setdefault("unanswered", rec.attempted - rec.completed)
+    ok, lines = check.verdict(numbers, manifest.limits(cfg))
+    out = result(man, cell, rec, ok, numbers, cfg, peak, trace, device)
+    if busy is not None:
+        out["device"]["busy_s"] = busy
+    return out, lines

@@ -31,7 +31,7 @@ def interval_ns(e: dict) -> Tuple[float, float]:
     return e["ts"] * 1e3, (e["ts"] + e["dur"]) * 1e3
 
 
-def _union(intervals) -> List[Tuple[float, float]]:
+def union(intervals) -> List[Tuple[float, float]]:
     out: List[Tuple[float, float]] = []
     for s, e in sorted(intervals):
         if out and s <= out[-1][1]:
@@ -48,11 +48,11 @@ def idle_inside_ns(events, intervals) -> Optional[float]:
     last's end (the traced window): the gaps between the union of the
     device ``events`` (name, start_ns, end_ns), intersected with the union
     of ``intervals``.  None where no interval meets the traced window."""
-    busy = _union((s, e) for _, s, e in events)
+    busy = union((s, e) for _, s, e in events)
     if not busy:
         return None
     lo, hi = busy[0][0], busy[-1][1]
-    spans_ = [(max(s, lo), min(e, hi)) for s, e in _union(intervals) if e > lo and s < hi]
+    spans_ = [(max(s, lo), min(e, hi)) for s, e in union(intervals) if e > lo and s < hi]
     if not spans_:
         return None
     gaps = [(a[1], b[0]) for a, b in zip(busy, busy[1:])]

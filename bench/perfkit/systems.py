@@ -13,14 +13,19 @@ from typing import Dict
 class SolverSystem:
     """``SteinerSolver(SolverConfig(**cfg["solver"])).prepare(graph)``; a
     query is ``PreparedGraph.solve(seeds)``, whose answer is every stage it
-    produced (``SolveOutput.raw``)."""
+    produced (``SolveOutput.raw``).  A mesh backend's ``mesh_shape`` (a
+    list in the file) reaches ``SolverConfig`` as a tuple; every rank of
+    its world builds this system and makes the same calls."""
 
     kind = "solver"
 
     def __init__(self, cfg: dict, graph, device):
         from repro_torch.solver import SolverConfig, SteinerSolver
 
-        self.handle = SteinerSolver(SolverConfig(**cfg["solver"]), device=device).prepare(graph)
+        conf = dict(cfg["solver"])
+        if "mesh_shape" in conf:
+            conf["mesh_shape"] = tuple(conf["mesh_shape"])
+        self.handle = SteinerSolver(SolverConfig(**conf), device=device).prepare(graph)
         self.lanes = 1
 
     def warmup(self, seeds) -> None:
@@ -32,6 +37,10 @@ class SolverSystem:
     @staticmethod
     def rounds(out) -> int:
         return int(out.telemetry.iterations)
+
+    @staticmethod
+    def messages(out) -> int:
+        return int(out.telemetry.messages)
 
 
 class ServerSystem:

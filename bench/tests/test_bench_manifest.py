@@ -52,9 +52,11 @@ def test_manifest_keeps_the_contract():
         assert set(c["reduced"]) <= set(json.loads((ROOT / c["file"]).read_text())["reduced"])
     pairs = set()
     for w in MAN["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] == 1
+        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] in (1, 4)
         assert len(w["why"]) <= 200 and (w["config"], w["traffic"]) not in pairs
         pairs.add((w["config"], w["traffic"]))
+    four = sum(w["chips"] == 4 for w in MAN["workloads"])
+    assert four <= max(1, len(MAN["workloads"]) // 4)
     for m in MAN["end_to_end"]:
         assert set(m) - {"workloads"} == {"name", "unit", "better", "bound", "source"}
         assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
@@ -95,9 +97,11 @@ def test_a_new_cell_needs_new_files_only(tmp_path):
     assert manifest.metric_reader("layout_builds.blocked", bench_dir=bench)(None) == 1.0
     # a per-layer metric without ``workloads`` is read in every cell that
     # reports what it moves, the new cell's included
-    cells = [w["name"] for w in man["workloads"]
-             if "layout_builds.blocked" in {m["name"] for m in
-                                            manifest.cell_metrics(man, w["name"], True)}]
-    assert cells == ["lvj1k-single-s1024", "lvj1k-single-s8", "lvj1k-blocked-s64"]
+    def reports(name, trace):
+        return [w["name"] for w in man["workloads"]
+                if name in {m["name"] for m in manifest.cell_metrics(man, w["name"], trace)}]
+
+    assert reports("layout_builds.blocked", True) == reports("solve_ms", False)
+    assert reports("solve_ms", False)[-1] == "lvj1k-blocked-s64"
     with pytest.raises(KeyError):
         manifest.workload(man, "no-such-cell")
